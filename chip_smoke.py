@@ -21,7 +21,19 @@ Run from the root of a checkout, with no arguments: ``python3 chip_smoke.py``.
    bytes at 3.35 TB/s and fp32 operations at 67 TFLOP/s, a per-stage
    breakdown of the scene, and the end-to-end map/reduce with its peak
    memory, for the scene and for a quarter of it (its first 64 tiles).
-5. Prints the kernels JSON line, the card's name and power limit, and last
+5. The matching path (``core/matching.py``, ``launch/stitch.py``): holds
+   the matcher kernel (one launch for both of the reference's matcher
+   kernels) against its plain twin at the scene pair's shapes (2048 x 2048,
+   Hamming W 8, L2 D 128 and 64, 20% invalid rows), an odd shape, an
+   all-invalid database, two single-segment shapes (no merge launch), a
+   1,048,576-row Hamming stream and a 262,144 x 128 L2 stream (sampled
+   queries against the blocked oracle); then, with the counters at 0,
+   extracts sift/surf/brief/orb from two overlapping 7681 x 7831 crops of
+   one scene at a known offset, registers each pair through the kernels and
+   the plain route (equal matches, offsets within 1e-3, orb within 1 px),
+   and runs the 4-scene stitch and its resume; times the matcher beside its
+   twin, the ``torch_full`` path and its bound.
+6. Prints the kernels JSON line, the card's name and power limit, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero.  Without CUDA, or outside a checkout, it exits
@@ -41,15 +53,28 @@ QUARTER = 64               # tiles of the quarter scene timed beside the scene
 REPS = 5                   # timed repetitions (median)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, data sheet
 FP32_OPS_PER_S = 67e12     # H100 SXM fp32 outside the tensor cores
+# __popc: 16 per clock per SM at compute capability 9.0 (CUDA C++
+# Programming Guide, arithmetic instruction throughput), 132 SMs, at the
+# 1.98 GHz boost clock behind the 67 TFLOP/s fp32 figure
+POPC_PER_S = 132 * 16 * 1.98e9
 CSRC = "src/repro_torch/kernels/csrc"
 REPLACES = {
     "harris": "src/repro/kernels/harris.py:44",
     "fast": "src/repro/kernels/fastscore.py:20",
     "blur": "src/repro/kernels/blur.py:18",
     "scalespace": "src/repro/kernels/scalespace.py:65",
+    # one kernel replaces both of the reference's matcher kernels
+    "matcher": "src/repro/kernels/matcher.py:219; "
+               "src/repro/kernels/matcher.py:257",
 }
 SOURCES = {"harris": "harris.cu", "fast": "fastscore.cu", "blur": "blur.cu",
-           "scalespace": "scalespace.cu"}
+           "scalespace": "scalespace.cu", "matcher": "matcher.cu"}
+EXTRACT_KERNELS = ("harris", "fast", "blur", "scalespace")
+MATCH_KERNELS = ("matcher",)
+PAIR_OFFSET = (16, 1958)   # scene b's origin in scene a, full-size pair
+STITCH_ARGS = ["--scenes", "4", "--scene-size", "2048", "--overlap", "512",
+               "--tile", "512", "--max-keypoints", "512", "--algorithm",
+               "orb"]
 
 
 def log(*args):
@@ -141,6 +166,147 @@ def bound(work):
     t_ops, t_bytes = ops / FP32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes
                                        else "bytes")
+
+
+def match_work(nq, nk_valid, nk, width, metric):
+    """(operations, bytes) of one match: every (query, valid row) pair; a
+    Hamming pair is ``width`` popcounts, an L2 pair ``width`` FMAs (2
+    operations), plus |k|^2 and |q|^2; inputs read once, the triple
+    written once."""
+    nbytes = (nq + nk) * width * 4 + nk * 4 + nq * 12
+    if metric == "hamming":
+        return nq * nk_valid * width, nbytes
+    return 2 * width * (nq * nk_valid + nk + nq), nbytes
+
+
+def match_bound(work, metric):
+    ops_, nbytes = work
+    t_ops = ops_ / (POPC_PER_S if metric == "hamming" else FP32_OPS_PER_S)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes
+                                       else "bytes")
+
+
+def check_matcher(torch, np, dev):
+    """The matcher kernel against its plain twin on the card; returns the
+    largest |kernel - twin| of a best distance."""
+    from repro_torch.kernels import matcher as M
+    from repro_torch.kernels import ref
+    rng = np.random.RandomState(1)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def make(metric, n, width):
+        if metric == "hamming":
+            a = rng.randint(0, 2 ** 32, (n, width), dtype=np.uint64) \
+                .astype(np.uint32).view(np.int32)
+        else:
+            a = rng.randn(n, width).astype(np.float32)
+        return torch.from_numpy(a).to(dev)
+
+    def valid(n, frac):
+        return torch.from_numpy((rng.rand(n) >= frac).astype(np.int32)).to(dev)
+
+    def hold(tag, metric, got, want, name):
+        torch.cuda.synchronize()
+        if metric == "hamming":
+            same = all(torch.equal(a, b) for a, b in zip(got, want))
+            require(same, f"{tag}: {name} is not bitwise equal to its twin")
+            return 0.0, 0
+        ok = all(torch.allclose(a, b, rtol=1e-5, atol=1e-4)
+                 for a, b in zip(got[:2], want[:2]))
+        require(ok, f"{tag}: {name} best/second beyond rtol 1e-5 atol 1e-4")
+        gap = (want[1] - want[0]) > 1e-4 + 1e-5 * want[1].abs()
+        require(bool((got[2] == want[2])[gap].all()),
+                f"{tag}: {name} idx differs where best and second are apart")
+        near = int(((got[2] != want[2]) & ~gap).sum())
+        fin = torch.isfinite(want[0])
+        e = (got[0] - want[0])[fin].abs().max().item() if bool(fin.any()) \
+            else 0.0
+        return e, near
+
+    log("matcher kernel vs its plain twin best2_scan on the card (Hamming "
+        "bitwise, L2 rtol 1e-5 atol 1e-4 with idx equal where best and second "
+        "are apart):")
+    err = 0.0
+    one_seg = M.BLOCKS_PER_SM * n_sm * M.QBLOCK   # query tiles fill the card
+    cases = [("hamming", 8, 2048, 2048, 0.2), ("l2", 128, 2048, 2048, 0.2),
+             ("l2", 64, 2048, 2048, 0.2), ("hamming", 8, 300, 1000, 0.2),
+             ("l2", 128, 300, 1000, 0.2), ("hamming", 8, 64, 500, 1.0),
+             ("l2", 64, 64, 500, 1.0), ("hamming", 8, 300, 50, 0.2),
+             ("hamming", 8, one_seg, 300, 0.2), ("l2", 128, one_seg, 300, 0.2)]
+    for metric, width, nq, nk, frac in cases:
+        q, db, v = make(metric, nq, width), make(metric, nk, width), \
+            valid(nk, frac)
+        if frac < 1.0:                          # a duplicate row: a tie
+            db[nk // 2] = db[nk // 3]
+        n_seg = M.segments(nq, nk, n_sm)[1]
+        tag = f"{metric} W/D {width} {nq}x{nk} invalid {frac:.0%}"
+        r = M.match(q, db, v, metric=metric)
+        e1, n1 = hold(tag, metric, r, M.best2_scan(q, db, v, metric=metric),
+                      "kernel")
+        if frac == 1.0:
+            big = M.big_for(metric)
+            require(bool((r[0] == big).all() & (r[1] == big).all()
+                         & (r[2] == 0).all()),
+                    f"{tag}: an all-invalid database must give BIG, BIG, 0")
+        if metric == "hamming" and nq * nk <= 2048 * 2048:
+            o = ref.match_best2(q, db, v, metric=metric)
+            require(all(torch.equal(a, b) for a, b in zip(r, o)),
+                    f"{tag}: kernel differs from the unpacked-bit oracle")
+        err = max(err, e1)
+        log(f"  {tag:44s} {n_seg:4d} segment(s); equal to the twin; "
+            f"max|err| {e1:.3g}; idx differing at near-ties {n1}")
+    require(M.segments(one_seg, 300, n_sm)[1] == 1
+            and M.segments(300, 50, n_sm)[1] == 1,
+            "the single-segment form was not exercised")
+    streams = [("hamming", 8, 2048, 1 << 20, 0.05),
+               ("l2", 128, 2048, 1 << 18, 0.05)]
+    for metric, width, nq, nk, frac in streams:
+        q, db, v = make(metric, nq, width), make(metric, nk, width), \
+            valid(nk, frac)
+        tag = f"stream {metric} {nq}x{nk}x{width} invalid {frac:.0%}"
+        t0 = time.perf_counter()
+        st = M.match(q, db, v, metric=metric)
+        e1, _ = hold(tag, metric, st, M.best2_scan(q, db, v, metric=metric),
+                     "kernel")
+        sample = torch.from_numpy(rng.choice(nq, 64, replace=False)).to(dev)
+        o = ref.match_best2_blocked(q[sample], db, v, metric=metric)
+        e3, _ = hold(tag, metric, tuple(x[sample] for x in st), o,
+                     "kernel (64 sampled queries vs the blocked oracle)")
+        err = max(err, e1, e3)
+        log(f"  {tag:44s} {M.segments(nq, nk, n_sm)[1]:4d} segments; equal "
+            f"to the twin and to the blocked oracle on 64 sampled queries; "
+            f"max|err| {max(e1, e3):.3g} ({time.perf_counter() - t0:.1f} s)")
+    return err
+
+
+def device_us_per_call(torch, fn, n):
+    """Device microseconds per call of ``fn``: the CUDA kernels' own time
+    under ``torch.profiler`` over ``n`` calls (the event timings include
+    the wrapper's host work when it outlasts the kernels)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return sum(ev.self_device_time_total for ev in prof.key_averages()
+               if ev.device_type == torch.autograd.DeviceType.CUDA) / n
+
+
+def register_all(torch, matching, feats, algs, use_kernels):
+    """register_pair (translation) for each algorithm on scene a -> b."""
+    out = {}
+    for alg in algs:
+        fa, fb = feats[0][alg], feats[1][alg]
+        out[alg] = matching.register_pair(
+            fa["top_ys"], fa["top_xs"], fa["top_desc"], fa["top_valid"],
+            fb["top_ys"], fb["top_xs"], fb["top_desc"], fb["top_valid"],
+            use_kernels=use_kernels)
+    torch.cuda.synchronize()
+    return out
 
 
 def main() -> int:
@@ -263,6 +429,7 @@ def main() -> int:
             hold(f"scalespace resp {h}", got[0], want[0], 0.0, 1e-5, thr=thr),
             hold(f"scalespace seed {h}", got[1], want[1], 0.0, 1e-5))
     torch.cuda.synchronize()
+    err["matcher"] = check_matcher(torch, np, dev)
 
     # ---- 3. the main path ---------------------------------------------------
     def run(use_kernels, n=None):
@@ -280,8 +447,9 @@ def main() -> int:
     first_s = time.perf_counter() - t0
     launches = ops.launch_counts()
     log(f"  kernel route, first run {first_s:.3f} s; launches {launches}")
-    for name, n in launches.items():
-        require(n >= 1, f"kernel {name} was not launched on the main path")
+    for name in EXTRACT_KERNELS:
+        require(launches[name] >= 1,
+                f"kernel {name} was not launched on the main path")
 
     res_k2 = run(True)
     for alg in PAPER_ALGORITHMS:
@@ -321,6 +489,91 @@ def main() -> int:
     log("  plain route agrees: counts, keypoints, valid flags and packed "
         "bits equal; scores and float descriptors within 1e-5")
     log("table2_counts " + json.dumps(counts))
+    del res_k2, res_p
+
+    # ---- 3b. the matching path ----------------------------------------------
+    # two overlapping crops of the paper's size from one wide scene; scene
+    # b's origin sits at PAIR_OFFSET in scene a, so t = -PAIR_OFFSET
+    import shutil
+    from repro_torch.core import matching
+    from repro_torch.launch import stitch
+    dy, dx = PAIR_OFFSET
+    t0 = time.perf_counter()
+    wide = synthetic_scene(cfg.scene_hw[0] + dy, cfg.scene_hw[1] + dx, seed=1)
+    crops = [wide[:cfg.scene_hw[0], :cfg.scene_hw[1]],
+             wide[dy:, dx:]]
+    pair_bundles = [tile_scene(np.ascontiguousarray(c), cfg) for c in crops]
+    del wide, crops
+    log(f"matching path: two {cfg.scene_hw} crops at offset {PAIR_OFFSET}, "
+        f"{len(pair_bundles[0])} tiles each, set-up "
+        f"{time.perf_counter() - t0:.1f} s")
+    match_algs = ("sift", "surf", "brief", "orb")
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    feats = [engine.extract_features_multi(b.tiles, b.headers, match_algs,
+                                           cfg, device=dev)
+             for b in pair_bundles]
+    torch.cuda.synchronize()
+    t_extract = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    reg_k = register_all(torch, matching, feats, match_algs, None)
+    t_register_first = time.perf_counter() - t0
+    store = ROOT / "build" / "chip_smoke_stitch"
+    shutil.rmtree(store, ignore_errors=True)
+    t0 = time.perf_counter()
+    st1 = stitch.main(STITCH_ARGS + ["--store", str(store)], device=dev)
+    t_stitch = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    match_launches = ops.launch_counts()
+    log(f"  matching path launches {match_launches}")
+    for name in MATCH_KERNELS + ("fast", "blur"):
+        require(match_launches[name] >= 1,
+                f"kernel {name} was not launched on the matching path")
+
+    reg_p = register_all(torch, matching, feats, match_algs, False)
+    t0 = time.perf_counter()
+    register_all(torch, matching, feats, match_algs, None)
+    t_register = time.perf_counter() - t0
+    want_t = torch.tensor([-dy, -dx], dtype=torch.float32, device=dev)
+    for alg in match_algs:
+        (mk, ek), (mp, ep) = reg_k[alg], reg_p[alg]
+        require(torch.equal(mk.ok, mp.ok), f"{alg}: ok differs across routes")
+        same_idx = mk.idx_b == mp.idx_b
+        require(bool(same_idx[mk.ok].all()),
+                f"{alg}: a matched idx_b differs across routes")
+        if alg in ("brief", "orb"):
+            require(bool(same_idx.all()), f"{alg}: idx_b differs across routes")
+        require(bool((ek.t - ep.t).abs().max() <= 1e-3),
+                f"{alg}: t differs across routes beyond 1e-3")
+        require(bool(torch.isfinite(ek.t).all()), f"{alg}: t not finite")
+        e = float((ek.t - want_t).abs().max())
+        log(f"  {alg:5s} matches {int(mk.ok.sum()):5d}, inliers "
+            f"{int(ek.n_inliers):5d}, t ({float(ek.t[0]):+.3f}, "
+            f"{float(ek.t[1]):+.3f}), |t - truth| {e:.3f} px, rms "
+            f"{float(ek.rms):.3f}; plain route: equal ok, idx_b equal at "
+            f"{int(same_idx.sum())}/{same_idx.numel()}, |dt| "
+            f"{float((ek.t - ep.t).abs().max()):.2g}")
+        if alg == "orb":
+            require(e <= 1.0 and int(ek.n_inliers) >= 8,
+                    "orb must recover the offset within 1 px with >= 8 "
+                    "inliers")
+    require(st1["max_err"] is not None and st1["max_err"] <= 1.0,
+            f"stitch max_err {st1['max_err']}")
+    require(len(st1["positions"]) == 4 and not st1["dropped"],
+            "stitch must place all 4 scenes and drop no pair")
+    t0 = time.perf_counter()
+    st2 = stitch.main(STITCH_ARGS + ["--store", str(store)], device=dev)
+    t_resume = time.perf_counter() - t0
+    require(st2["positions"] == st1["positions"]
+            and st2["pairs"] == st1["pairs"], "the resumed stitch differs")
+    log(f"  stitch: 4 scenes placed, max_err {st1['max_err']:.3f} px, "
+        f"resume identical; wall {t_stitch:.2f} s (store build, extraction, "
+        f"matching), resume {t_resume:.2f} s")
+    log(f"  wall: extraction of both crops (4 algorithms) {t_extract:.3f} s; "
+        f"register_pair x4 algorithms {t_register:.3f} s "
+        f"(first call {t_register_first:.3f} s)")
+    del feats, reg_k, reg_p, pair_bundles
 
     # ---- 4. timings ---------------------------------------------------------
     log("timings (median of %d, CUDA events):" % REPS)
@@ -375,6 +628,50 @@ def main() -> int:
             + ("-" if row["library_ms"] is None else f"{row['library_ms']:.4f} ms"))
     for name, fn in extra.items():
         log(f"  {name:41s} kernel {cuda_ms(fn):.4f} ms")
+
+    # the matcher at the scene pair's shape and on the 1M-row stream
+    from repro_torch.kernels import matcher as M
+    mrng = np.random.RandomState(2)
+    mtimes = {}
+    for metric, width, nq, nk in (("hamming", 8, 2048, 2048),
+                                  ("l2", 128, 2048, 2048),
+                                  ("hamming", 8, 2048, 1 << 20)):
+        if metric == "hamming":
+            mk = lambda n: torch.from_numpy(mrng.randint(
+                0, 2 ** 32, (n, width), dtype=np.uint64).astype(np.uint32)
+                .view(np.int32)).to(dev)
+        else:
+            mk = lambda n: torch.from_numpy(
+                mrng.randn(n, width).astype(np.float32)).to(dev)
+        q, db = mk(nq), mk(nk)
+        v = torch.from_numpy((mrng.rand(nk) >= 0.2).astype(np.int32)).to(dev)
+        big = nk > 1 << 17
+        work = match_work(nq, int(v.sum()), nk, width, metric)
+        b_ms, b_by = match_bound(work, metric)
+        full_ms = None if big else cuda_ms(
+            lambda: M.best2_full(q, db, v, metric=metric))
+        reps = dict(reps=3, warmup=1) if big else {}
+        row = dict(ms=cuda_ms(lambda: M.match(q, db, v, metric=metric)),
+                   plain_ms=cuda_ms(lambda: M.best2_scan(q, db, v,
+                                                         metric=metric),
+                                    **reps),
+                   bound_ms=b_ms, bound_by=b_by, torch_full_ms=full_ms)
+        if not big:
+            row["device_us"] = device_us_per_call(
+                torch, lambda: M.match(q, db, v, metric=metric), 20)
+        mtimes[(metric, nk)] = row
+        log(f"  matcher {metric:7s} {nq}x{nk}x{width}: kernel "
+            f"{row['ms']:.4f} ms  twin {row['plain_ms']:.4f} ms  "
+            f"torch_full "
+            + ("-" if full_ms is None else f"{full_ms:.4f} ms")
+            + f"  bound {b_ms:.4f} ms ({b_by}; popc at "
+            f"{POPC_PER_S:.3g}/s, fp32 at {FP32_OPS_PER_S:.3g}/s, "
+            f"{HBM_BYTES_PER_S:.3g} B/s)  launches on the matching path "
+            f"{match_launches['matcher']}"
+            + (f"; device time per call under the profiler "
+               f"{row['device_us']:.1f} us" if "device_us" in row else ""))
+        del q, db, v
+    rows["matcher"] = dict(mtimes[("hamming", 2048)], library_ms=None)
 
     # where the time goes: the scene, stage by stage, kernel route
     stage = {}
@@ -438,12 +735,13 @@ def main() -> int:
 
     # ---- 5. results ---------------------------------------------------------
     kernels = []
-    for name in ("harris", "fast", "blur", "scalespace"):
+    for name in EXTRACT_KERNELS + MATCH_KERNELS:
         row = rows[name]
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"{CSRC}/{SOURCES[name]}", "replaces": REPLACES[name],
-            "launches": launches[name], "max_abs_err": err[name],
+            "launches": (match_launches if name in MATCH_KERNELS
+                         else launches)[name], "max_abs_err": err[name],
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"]})

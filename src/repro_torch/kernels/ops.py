@@ -1,9 +1,13 @@
-"""Public wrappers of the four CUDA kernels (``repro/kernels/ops.py``'s
+"""Public wrappers of the CUDA kernels (``repro/kernels/ops.py``'s
 counterparts): ``harris``, ``gaussian_blur``, ``fast_score`` and
 ``scalespace_octave`` accept ``[H, W]`` or ``[N, H, W]`` (the blur any
 ``[..., H, W]``) and return the same rank.  The kernels reflect-pad by index
 themselves, so the reference's host-side pad and its TPU-only 128-lane edge
 pad have no counterpart here; neither changes the cropped output.
+
+``match_best2`` is the descriptor matcher; its kernel masks its own ragged
+query and database edges, so the reference's zero-padding of D to 128 lanes
+and of the queries to ``QBLOCK`` has no counterpart either.
 """
 from __future__ import annotations
 
@@ -12,6 +16,7 @@ import torch
 from repro_torch.kernels import blur as _blur
 from repro_torch.kernels import fastscore as _fast
 from repro_torch.kernels import harris as _harris
+from repro_torch.kernels import matcher as _matcher
 from repro_torch.kernels import ref
 from repro_torch.kernels import scalespace as _scalespace
 
@@ -20,11 +25,12 @@ KERNELS = {
     "fast": _fast.KERNEL,
     "blur": _blur.KERNEL,
     "scalespace": _scalespace.KERNEL,
+    "matcher": _matcher.KERNEL,
 }
 
 
 def launch_counts() -> dict:
-    """{kernel name: launches so far} for the four kernels."""
+    """{kernel name: launches so far} for every kernel."""
     return {name: k.launches for name, k in KERNELS.items()}
 
 
@@ -93,3 +99,80 @@ def reference_fuses_octave(h: int, w: int, scales_per_octave: int,
     slab = (h + 2 * p) * wp * 4
     n_levels = scales_per_octave + 3
     return (2 * n_levels + 2 + 4) * slab <= _REFERENCE_BUDGET_BYTES
+
+
+# --- descriptor matching -------------------------------------------------------
+# The reference measures its paths once per shape bucket and may pick a jnp
+# path on any backend; it also gates its resident kernel on a 12 MiB TPU
+# VMEM budget (matcher_fits_vmem).  Both pick a path, not a result, so
+# neither is copied (unlike the octave-fusion rule above, which decides
+# which maps the reference computes).  Here the card always runs the kernel,
+# which sizes its own launch (``matcher.segments``), and the plain route is
+# taken only when asked for.
+MATCH_QBLOCK = _matcher.QBLOCK
+FULL_MAX_ROWS = 1 << 17          # torch_full's [Q, K] block up to this K
+# ``cuda_resident`` names the same kernel as ``cuda_stream``: one launch
+# covers both of the reference's kernels
+MATCH_PATHS = ("torch_full", "torch_stream", "cuda_resident", "cuda_stream")
+
+
+def match_path(nk: int, *, use_kernels: bool = None,
+               backend: str = None) -> str:
+    """The path a ``match_best2`` call over ``nk`` database rows takes, one
+    of ``MATCH_PATHS``.  ``backend`` is the tensors' device type (default:
+    ``cuda`` where the card is present).  On ``cuda``, ``use_kernels`` None
+    or True takes the kernel (``cuda_stream``); ``use_kernels=False``, or
+    None on the CPU, takes the plain route: ``torch_full`` up to
+    ``FULL_MAX_ROWS`` rows, ``torch_stream`` above.  ``use_kernels=True``
+    on the CPU takes ``cuda_stream``, whose wrapper runs its twin there."""
+    if backend is None:
+        backend = "cuda" if torch.cuda.is_available() else "cpu"
+    if use_kernels or (use_kernels is None and backend == "cuda"):
+        return "cuda_stream"
+    return "torch_full" if nk <= FULL_MAX_ROWS else "torch_stream"
+
+
+_PATH_FNS = {
+    "torch_full": _matcher.best2_full,
+    "torch_stream": _matcher.best2_stream,
+    "cuda_resident": _matcher.match,
+    "cuda_stream": _matcher.match,
+}
+
+
+def match_best2(queries: torch.Tensor, db: torch.Tensor,
+                db_valid: torch.Tensor = None, *, metric: str = "l2",
+                use_kernels: bool = None, path: str = None):
+    """Per query (best, second-best, argbest) over a masked database.
+
+    queries [Q, D], db [K, D], db_valid [K] (None = all valid), all on one
+    device.  ``metric="hamming"`` needs bit-packed int32 words
+    (``descriptors.pack_bits``) and gives exact int32 distances;
+    ``metric="l2"`` needs floats (cast to fp32) and gives squared L2.
+    ``path`` pins one of ``MATCH_PATHS``; otherwise ``match_path`` picks
+    one from the database size and ``use_kernels``.  On CUDA tensors a
+    CUDA path launches its kernel or raises; a torch path runs only when
+    asked for (``use_kernels=False`` or ``path``).  Every path gives the
+    same distances, masking and smallest-index ties (Hamming bit for
+    bit)."""
+    if metric == "hamming":
+        if queries.dtype != torch.int32 or db.dtype != torch.int32:
+            raise TypeError("hamming matching needs bit-packed int32 "
+                            "descriptors (descriptors.pack_bits)")
+    elif metric == "l2":
+        if not (queries.is_floating_point() and db.is_floating_point()):
+            raise TypeError("l2 matching needs float descriptors")
+        queries, db = queries.float(), db.float()
+    else:
+        raise ValueError(f"unknown metric {metric!r}")
+    nk = db.shape[0]
+    if db_valid is None:
+        db_valid = torch.ones(nk, dtype=torch.int32, device=db.device)
+    db_valid = db_valid.to(device=db.device, dtype=torch.int32).contiguous()
+    if path is None:
+        path = match_path(nk, use_kernels=use_kernels,
+                          backend=queries.device.type)
+    elif path not in MATCH_PATHS:
+        raise ValueError(f"unknown path {path!r} (want one of {MATCH_PATHS})")
+    return _PATH_FNS[path](queries.contiguous(), db.contiguous(), db_valid,
+                           metric=metric)

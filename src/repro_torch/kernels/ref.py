@@ -1,4 +1,5 @@
-"""Plain PyTorch twins of the four CUDA kernels.
+"""Plain PyTorch twins of the four stencil kernels, and the matcher's
+oracles.
 
 Each twin computes what its kernel computes, with the kernels' convention:
 reflect-pad the image ONCE (by index map, ``jnp.pad`` multi-bounce
@@ -11,6 +12,11 @@ Float order is the kernels' own (taps summed left to right, one rounding
 per multiply and per add), so on the same device a kernel and its twin give
 the same bits.  A wrapper in ``repro_torch.kernels`` runs its twin only for
 a tensor on the CPU; ``chip_smoke.py`` holds each kernel against its twin.
+
+The matcher's plain twins live beside its wrappers in ``kernels/matcher.py``;
+``match_best2`` and ``match_best2_blocked`` here are its oracles, with the
+reference's independent formulation (Hamming by unpacked bits, L2 on the
+whole matrix).
 """
 from __future__ import annotations
 
@@ -126,3 +132,87 @@ def scalespace_octave(base: torch.Tensor, *, scales_per_octave: int,
     resp = torch.where(is_ext & (a > f32(contrast_threshold)), a,
                        torch.zeros_like(a)).amax(dim=-3)
     return resp, seed.contiguous()
+
+
+# --- matcher oracles ---------------------------------------------------------
+BIG_HAMMING = 1 << 30
+
+
+def _unpack_bits(x: torch.Tensor) -> torch.Tensor:
+    """int32 words [N, W] -> bool [N, W*32], little-endian within each word
+    (an arithmetic shift of a negative word still leaves bit j in place)."""
+    shifts = torch.arange(32, device=x.device, dtype=torch.int32)
+    bits = (x[..., None] >> shifts) & 1
+    return bits.reshape(x.shape[0], x.shape[1] * 32).bool()
+
+
+def first_argmin(d: torch.Tensor, best: torch.Tensor) -> torch.Tensor:
+    """The smallest column index holding each row's minimum ``best``
+    (``jnp.argmin``'s first occurrence), as int32."""
+    cols = torch.arange(d.shape[1], device=d.device)
+    at = torch.where(d == best[:, None], cols, d.shape[1])
+    return at.amin(dim=1).clamp_max(max(d.shape[1] - 1, 0)).to(torch.int32)
+
+
+def best2_rows(d: torch.Tensor, big):
+    """(best, second, argbest) of each row of a distance block [Q, C]:
+    min, first-occurrence argmin, and the min with the argbest column set
+    to ``big`` (a tied minimum makes second == best)."""
+    best = d.amin(dim=1)
+    arg = first_argmin(d, best)
+    cols = torch.arange(d.shape[1], device=d.device)
+    second = torch.where(cols[None, :] == arg[:, None],
+                         torch.full_like(d, big), d).amin(dim=1)
+    return best, second, arg
+
+
+def match_best2(q: torch.Tensor, db: torch.Tensor, db_valid: torch.Tensor, *,
+                metric: str):
+    """Oracle of the matcher: the full [Q, K] distance matrix.  Hamming by
+    counting disagreeing unpacked bits (not the kernel's packed popcount),
+    L2 by the norm expansion on the un-chunked matrix.  best/second by min
+    and re-min; ties go to the smallest database index.  Hamming distances
+    are exact ints, so equality with the kernel is bitwise."""
+    if metric == "hamming":
+        d = (_unpack_bits(q)[:, None, :] != _unpack_bits(db)[None, :, :]) \
+            .sum(dim=-1, dtype=torch.int32)
+        big = BIG_HAMMING
+    elif metric == "l2":
+        q, db = q.float(), db.float()
+        qn = (q * q).sum(dim=-1)
+        dn = (db * db).sum(dim=-1)
+        d = qn[:, None] + dn[None, :] - 2.0 * (q @ db.T)
+        big = float("inf")
+    else:
+        raise ValueError(f"unknown metric {metric!r}")
+    if db.shape[0] == 0:
+        n = q.shape[0]
+        full = torch.full((n,), big, dtype=d.dtype, device=q.device)
+        return full, full.clone(), torch.zeros(n, dtype=torch.int32,
+                                               device=q.device)
+    d = torch.where(db_valid[None, :] != 0, d, torch.full_like(d, big))
+    return best2_rows(d, big)
+
+
+def match_best2_blocked(q: torch.Tensor, db: torch.Tensor,
+                        db_valid: torch.Tensor, *, metric: str,
+                        block: int = 65536):
+    """``match_best2`` over database blocks with a strictly-less merge in
+    database order, so parity checks against the streamed paths scale to
+    millions of rows without the whole [Q, K] matrix.  Equal to
+    ``match_best2`` exactly."""
+    big = BIG_HAMMING if metric == "hamming" else float("inf")
+    dt = torch.int32 if metric == "hamming" else torch.float32
+    nq = q.shape[0]
+    best = torch.full((nq,), big, dtype=dt, device=q.device)
+    second = best.clone()
+    bidx = torch.zeros(nq, dtype=torch.int32, device=q.device)
+    for start in range(0, db.shape[0], block):
+        cb, cs, ci = match_best2(q, db[start:start + block],
+                                 db_valid[start:start + block], metric=metric)
+        take = cb < best
+        second = torch.where(take, torch.minimum(best, cs),
+                             torch.minimum(second, cb))
+        bidx = torch.where(take, ci + start, bidx)
+        best = torch.where(take, cb, best)
+    return best, second, bidx

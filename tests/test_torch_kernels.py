@@ -129,8 +129,12 @@ def test_wrappers_keep_rank_and_count_no_cpu_launch():
     resp, seed = ops.scalespace_octave(img, scales_per_octave=3,
                                        contrast_threshold=0.0133)
     assert resp.shape == img.shape and seed.shape == img.shape
+    words = torch.zeros(5, 8, dtype=torch.int32)
+    for path in ("cuda_resident", "cuda_stream"):
+        assert ops.match_best2(words, words, metric="hamming",
+                               path=path)[0].shape == (5,)
     assert ops.launch_counts() == {"harris": 0, "fast": 0, "blur": 0,
-                                   "scalespace": 0}
+                                   "scalespace": 0, "matcher": 0}
 
 
 def test_wrapper_input_checks():
