@@ -3,24 +3,39 @@
 
 Run from the root of a checkout, with no arguments: ``python3 chip_smoke.py``.
 
-1. Builds the four CUDA kernels from ``src/repro_torch/kernels/csrc`` with
-   nvcc for sm_90a and prints the build seconds and ptxas reports.
-2. Holds each kernel against its plain PyTorch twin on the card at the main
-   path's shapes (256 tiles of 560^2, SIFT octaves 280/140/70, 131072
-   patches of 22^2), an odd unaligned shape, and a tiny octave smaller than
-   its pad.
+1. Builds the five CUDA kernel libraries from ``src/repro_torch/kernels/csrc``
+   with nvcc for sm_90a (one process per source, all at once), prints the
+   build seconds and each entry function's registers, shared memory and
+   spills from the ptxas report kept beside each library (for libraries
+   built by an earlier run as well), and fails on any spill.
+2. Holds each kernel against its plain PyTorch twin on the card: blur and
+   Harris/Shi-Tomasi bit for bit at the main path's shapes (256 tiles of
+   560^2; every blur sigma of the path; 131072 patches of 22^2) and at
+   shapes that reach every branch of their design (every radius 1-16 on
+   [3, 97, 131], images smaller than their radius, 1001 patches, N = 1, a
+   misaligned view that must take the scalar staging); FAST within
+   tolerance; the SIFT octave at 304^2 (octave 0 at tile 256), at the
+   higher octaves of a 560^2 tile, at 10^2 and at an odd width.
 3. Drives the main path: ``extract_features_multi`` over the paper's full
    scene (7681 x 7831, 256 tiles of 560^2, ``DifetConfig()``, all seven
    algorithms) through the kernels, with every launch counter set to 0
-   just before and read just after; runs it again and requires bitwise
-   equal results; runs the plain route (no kernels) and requires equal
-   counts, keypoints and descriptor bits, and float results within
-   tolerance.
+   just before and read just after: harris, fast and blur must launch and
+   the scale-space kernel must not (octave 0 of a 560^2 tile runs per
+   level and no result reads octaves 1-3); runs it again and requires
+   bitwise equal results; runs the plain route (no kernels) and requires
+   equal counts, keypoints and descriptor bits, and float results within
+   tolerance.  Then the scale-space kernel's own path: SIFT over the same
+   scene at tile 256 (961 tiles of 304^2, the reference's
+   ``launch/extract.py`` defaults), where octave 0 fuses: the kernel must
+   launch, two runs must be bitwise equal, and the run is timed.
 4. Times each kernel, its twin and a library yardstick where one exists
-   (CUDA events, median of 5 after warm-up), each kernel's bound from
-   bytes at 3.35 TB/s and fp32 operations at 67 TFLOP/s, a per-stage
-   breakdown of the scene, and the end-to-end map/reduce with its peak
-   memory, for the scene and for a quarter of it (its first 64 tiles).
+   (CUDA events around one call, median of 5 after warm-up, and the
+   device time per call under ``torch.profiler``), each kernel's bound
+   from bytes at 3.35 TB/s and fp32 operations at 67 TFLOP/s: every blur
+   shape the main path launches with its launches per scene, and each
+   kernel's launch-weighted total over its path; a per-stage breakdown of
+   the scene, and the end-to-end map/reduce with its peak memory, for the
+   scene and for a quarter of it (its first 64 tiles).
 5. The matching path (``core/matching.py``, ``launch/stitch.py``): holds
    the matcher kernel (one launch for both of the reference's matcher
    kernels) against its plain twin at the scene pair's shapes (2048 x 2048,
@@ -32,9 +47,13 @@ Run from the root of a checkout, with no arguments: ``python3 chip_smoke.py``.
    one scene at a known offset, registers each pair through the kernels and
    the plain route (equal matches, offsets within 1e-3, orb within 1 px),
    and runs the 4-scene stitch and its resume; times the matcher beside its
-   twin, the ``torch_full`` path and its bound.
-6. Prints the kernels JSON line, the card's name and power limit, and last
-   ``{"ok": true, "device": {...}}``.
+   twin, the ``torch_full`` path and its bound, and each of the path's
+   matcher launches on the inputs it was given.
+6. Prints the kernels JSON line (with ``launch_weighted_ms`` and
+   ``launch_weighted_bound_ms`` per kernel: the sum over the kernel's
+   launches on its path of each one's measured time and its bound), the
+   card's name and power
+   limit, and last ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero.  Without CUDA, or outside a checkout, it exits
 non-zero and prints no result.
@@ -42,6 +61,7 @@ non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -70,11 +90,47 @@ REPLACES = {
 SOURCES = {"harris": "harris.cu", "fast": "fastscore.cu", "blur": "blur.cu",
            "scalespace": "scalespace.cu", "matcher": "matcher.cu"}
 EXTRACT_KERNELS = ("harris", "fast", "blur", "scalespace")
+MAIN_KERNELS = ("harris", "fast", "blur")     # the tile-512 path's kernels
 MATCH_KERNELS = ("matcher",)
 PAIR_OFFSET = (16, 1958)   # scene b's origin in scene a, full-size pair
 STITCH_ARGS = ["--scenes", "4", "--scene-size", "2048", "--overlap", "512",
                "--tile", "512", "--max-keypoints", "512", "--algorithm",
                "orb"]
+
+
+def ptxas_entries(text):
+    """(kernel, registers, static shared bytes, spills) of each entry
+    function in an ``nvcc --ptxas-options=-v`` report; a template kernel
+    reads as ``name<R>``."""
+    out, entry, spill, smem = [], None, "", 0
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            entry, spill, smem = kernel_label(m.group(1)), "", 0
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = f"{m.group(1)} B stores, {m.group(2)} B loads"
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry is not None:
+            s = re.search(r"(\d+) bytes smem", line)
+            smem = int(s.group(1)) if s else 0
+            out.append((entry, int(m.group(1)), smem, spill))
+            entry = None
+    return out
+
+
+def kernel_label(mangled):
+    """``name<R>`` for an Itanium-mangled template kernel ``...<int R>``,
+    else the mangled name's tail."""
+    for m in re.finditer(r"\d+", mangled):
+        n = int(m.group(0))
+        name, rest = mangled[m.end():m.end() + n], mangled[m.end() + n:]
+        t = re.match(r"ILi(\d+)E", rest)
+        if name.isidentifier() and t:
+            return f"{name}<{t.group(1)}>"
+    return mangled[-28:]
 
 
 def log(*args):
@@ -344,15 +400,22 @@ def main() -> int:
 
     # ---- 1. build -----------------------------------------------------------
     t0 = time.perf_counter()
-    logs = build.build_all()
-    log(f"build: {len(logs)} kernel libraries built with nvcc "
+    built = build.build_all()
+    log(f"build: {len(built)} kernel libraries built with nvcc "
         f"(sm_90a) from {CSRC} in {time.perf_counter() - t0:.2f} s")
-    for name, text in logs.items():
-        for line in text.splitlines():
-            if "registers" in line:
-                log(f"  {name}: {line.strip()}")
-    require(all(build.library_path(s).exists() for s in build.SOURCES),
-            "a kernel library is missing after the build")
+    # the spill gate reads the ptxas report that the build keeps beside each
+    # library, so it holds for libraries built by an earlier run as well
+    for name in build.SOURCES:
+        lib = build.library_path(name)
+        require(lib.exists() and lib.with_suffix(".log").exists(),
+                f"{name}: the library or its build report is missing")
+        entries = ptxas_entries(lib.with_suffix(".log").read_text())
+        require(entries, f"{name}: the build report lists no kernel")
+        for entry, regs, smem, spill in entries:
+            log(f"  {name}: {entry:28s} {regs:3d} registers, {smem:6d} B "
+                f"static shared, spills {spill}")
+            require(spill == "0 B stores, 0 B loads",
+                    f"{name}: {entry} spills registers")
 
     # ---- inputs: the paper's scene, tiled -----------------------------------
     cfg = DifetConfig()
@@ -371,29 +434,57 @@ def main() -> int:
     err = {k: 0.0 for k in ops.KERNELS}
     rng = np.random.RandomState(0)
 
-    def hold(name, got, want, rtol, atol, thr=None):
+    def hold(name, got, want, rtol, atol, thr=None, bitwise=False):
         torch.cuda.synchronize()
         require(got.shape == want.shape, f"{name}: shape {tuple(got.shape)}")
-        e = (got - want).abs().max().item()
-        ok = torch.allclose(got, want, rtol=rtol, atol=atol)
+        e = (got - want).abs().max().item() if got.numel() else 0.0
+        same = torch.equal(got, want)
+        ok = same if bitwise else torch.allclose(got, want, rtol=rtol,
+                                                 atol=atol)
         same_mask = thr is None or torch.equal(got > thr, want > thr)
-        log(f"  {name:28s} {str(tuple(got.shape)):18s} max|err| {e:.3g} "
-            f"bitwise {torch.equal(got, want)} (rtol {rtol:g} atol {atol:g})")
+        gate = "bitwise" if bitwise else f"rtol {rtol:g} atol {atol:g}"
+        log(f"  {name:34s} {str(tuple(got.shape)):18s} max|err| {e:.3g} "
+            f"bitwise {same} (gate: {gate})")
         require(ok and same_mask, f"{name}: kernel disagrees with its twin")
         return e
 
-    log("kernels vs plain twins on the card:")
+    def sigma_for_radius(r):
+        """A sigma whose window radius ceil(3 sigma) is r."""
+        s = (r - 0.5) / 3
+        require((len(gaussian_kernel_1d(s)) - 1) // 2 == r, f"radius {r}")
+        return s
+
+    def rand(*shape):
+        return torch.from_numpy(rng.rand(*shape).astype(np.float32)).to(dev)
+
+    log("kernels vs plain twins on the card (blur and harris bitwise, "
+        "fast within rtol 1e-5 atol 1e-6, scalespace within atol 1e-5):")
     x = tiles
-    odd = torch.from_numpy(rng.rand(3, 61, 200).astype(np.float32)).to(dev)
-    for img, tag in ((x, "tiles"), (odd, "odd")):
+    odd = rand(3, 61, 200)
+    # the kernels stage with 16-byte copies only where W % 4 == 0 and the
+    # data pointer is 16-byte aligned: the tiles do; these two take the
+    # scalar reflecting staging
+    odd_r = rand(3, 97, 131)                 # W % 4 != 0
+    buf = rand(1 + 2 * 560 * 560)
+    misaligned = buf[1:].view(2, 560, 560)   # one float into a buffer
+    require(x.data_ptr() % 16 == 0 and misaligned.data_ptr() % 16 == 4,
+            "the tiles must be 16-byte aligned and the view 4 bytes off")
+    harris_cases = [(x, 1.0, "tiles"), (odd, 1.0, "odd"),
+                    (rand(1, 560, 560), 1.0, "N=1"),
+                    (misaligned, 1.0, "misaligned view"),
+                    (rand(2, 3, 3), 1.0, "3^2"), (rand(2, 3, 3), 3.2, "3^2")]
+    harris_cases += [(odd_r, sigma_for_radius(r), f"r={r}")
+                     for r in range(1, 17)]
+    for img, sigma, tag in harris_cases:
         for shi in (False, True):
-            e = hold(f"harris shi={shi} {tag}",
-                     ops.harris(img, k=cfg.harris_k, shi_tomasi=shi),
-                     ref.harris(img, k=cfg.harris_k, shi_tomasi=shi),
-                     1e-5, 1e-7,
-                     thr=engine.ALGORITHMS["shi_tomasi" if shi else "harris"]
-                     .threshold(cfg))
+            e = hold(f"harris shi={shi} s={sigma:.3f} {tag}",
+                     ops.harris(img, k=cfg.harris_k, sigma=sigma,
+                                shi_tomasi=shi),
+                     ref.harris(img, k=cfg.harris_k, sigma=sigma,
+                                shi_tomasi=shi),
+                     0, 0, bitwise=True)
             err["harris"] = max(err["harris"], e)
+    for img, tag in ((x, "tiles"), (odd, "odd")):
         e = hold(f"fast {tag}", ops.fast_score(img, threshold=cfg.fast_threshold),
                  ref.fast_score(img, threshold=cfg.fast_threshold),
                  1e-5, 1e-6, thr=0.0)
@@ -403,15 +494,33 @@ def main() -> int:
     ys = torch.from_numpy(rng.randint(24, 536, kp_shape)).to(dev)
     xs = torch.from_numpy(rng.randint(24, 536, kp_shape)).to(dev)
     patches = DS.extract_patches(x, ys, xs, 22).reshape(-1, 22, 22)
+    incs = octave_increments(cfg.scales_per_octave, 1.6)
     blur_cases = [(x, 1.6, "tiles s0"), (x, 2.0, "tiles desc"),
-                  (patches, 1.0, "patches"), (odd, 3.2, "odd")]
-    blur_cases += [(base0, s, f"octave0 inc{i}")
-                   for i, s in enumerate(octave_increments(3, 1.6), 1)]
+                  (patches, 1.0, "patches"), (odd, 3.2, "odd"),
+                  (patches[:1001], 1.0, "1001 patches"),
+                  (rand(2, 5, 7), 3.2, "5x7 < r"),
+                  (rand(2, 5, 100), 3.2, "5 rows < r, tiled"),
+                  (rand(1, 560, 560), 1.6, "N=1"),
+                  (misaligned, 1.6, "misaligned view"),
+                  (misaligned, incs[-1], "misaligned view")]
+    blur_cases += [(base0, s, f"octave0 inc{i}") for i, s in enumerate(incs, 1)]
+    blur_cases += [(odd_r, sigma_for_radius(r), f"r={r}") for r in range(1, 17)]
     for img, sigma, tag in blur_cases:
         e = hold(f"blur s={sigma:.3f} {tag}", ops.gaussian_blur(img, sigma),
-                 ref.gaussian_blur(img, sigma), 1e-5, 1e-6)
+                 ref.gaussian_blur(img, sigma), 0, 0, bitwise=True)
         err["blur"] = max(err["blur"], e)
+    del odd_r, buf, misaligned
     thr = cfg.sift_contrast_threshold / cfg.scales_per_octave
+    # octave shapes: 304^2 (octave 0 at tile 256, the path that runs the
+    # kernel), the higher octaves of a 560^2 tile (280, 140, 70), a 10^2
+    # octave smaller than its pad, an odd width
+    cfg256 = DifetConfig(tile=256, halo=24, max_keypoints_per_tile=256)
+    bundle256 = tile_scene(scene, cfg256)
+    tiles256 = torch.from_numpy(bundle256.tiles).to(dev)
+    headers256 = torch.from_numpy(bundle256.headers).to(dev)
+    require(tiles256.shape == (961, 304, 304), "the scene must cut into "
+            "961 tiles of 304^2 at tile 256")
+    base304 = ops.gaussian_blur(tiles256[:128], 1.6)
     octave_bases = []
     base = ref.gaussian_blur(x, 1.6)
     for _ in range(3):
@@ -420,7 +529,7 @@ def main() -> int:
         octave_bases.append(base)                   # 280^2, 140^2, 70^2
     tiny = octave_bases[-1][:4, :10, :10].contiguous()
     oddb = ref.gaussian_blur(odd[:, :, :199].contiguous(), 1.6)
-    for b in octave_bases + [tiny, oddb]:
+    for b in [base304] + octave_bases + [tiny, oddb]:
         got = ops.scalespace_octave(b, scales_per_octave=3, contrast_threshold=thr)
         want = ref.scalespace_octave(b, scales_per_octave=3, contrast_threshold=thr)
         h = b.shape[-1]
@@ -428,6 +537,7 @@ def main() -> int:
             err["scalespace"],
             hold(f"scalespace resp {h}", got[0], want[0], 0.0, 1e-5, thr=thr),
             hold(f"scalespace seed {h}", got[1], want[1], 0.0, 1e-5))
+    del got, want, octave_bases, tiny, oddb
     torch.cuda.synchronize()
     err["matcher"] = check_matcher(torch, np, dev)
 
@@ -447,9 +557,14 @@ def main() -> int:
     first_s = time.perf_counter() - t0
     launches = ops.launch_counts()
     log(f"  kernel route, first run {first_s:.3f} s; launches {launches}")
-    for name in EXTRACT_KERNELS:
+    for name in MAIN_KERNELS:
         require(launches[name] >= 1,
                 f"kernel {name} was not launched on the main path")
+    # octave 0 of a 560^2 tile runs per level (the reference's rule) and no
+    # result reads octaves 1-3, so the fused octave has no work here
+    require(launches["scalespace"] == 0,
+            "the scale-space kernel ran on the tile-512 path, whose fused "
+            "octaves no result reads")
 
     res_k2 = run(True)
     for alg in PAPER_ALGORITHMS:
@@ -491,6 +606,39 @@ def main() -> int:
     log("table2_counts " + json.dumps(counts))
     del res_k2, res_p
 
+    # ---- 3a. the scale-space kernel's own path: SIFT at tile 256 ------------
+    # the reference's launch/extract.py defaults (tile 256, halo 24, K 256):
+    # octave 0 of a 304^2 tile fuses, so the fused octave runs once
+    def run256():
+        return engine.extract_features_multi(
+            tiles256, headers256, ("sift",), cfg256, device=dev)["sift"]
+
+    log(f"scale-space path: extract_features_multi, sift, "
+        f"{tiles256.shape[0]} tiles of {tiles256.shape[1]}^2 at once")
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res256 = run256()
+    torch.cuda.synchronize()
+    t256_first = time.perf_counter() - t0
+    launches256 = ops.launch_counts()
+    require(launches256["scalespace"] >= 1 and launches256["blur"] >= 1,
+            "the fused octave or the base blur did not run at tile 256")
+    res256b = run256()
+    for key, v in res256.items():
+        require(torch.equal(v, res256b[key]),
+                f"two tile-256 sift runs differ in {key}")
+    require(bool(torch.isfinite(res256["top_scores"]).all())
+            and res256["top_ys"].shape == (4 * cfg256.max_keypoints_per_tile,)
+            and int(res256["total_count"]) > 0,
+            "tile-256 sift: scores not finite, a wrong top-K shape or no "
+            "keypoint")
+    t256 = host_s(run256, REPS)
+    log(f"  launches {launches256}; two runs bitwise identical; sift count "
+        f"{int(res256['total_count'])}; first run {t256_first:.3f} s, "
+        f"median of {REPS} {t256:.4f} s")
+    del res256, res256b
+
     # ---- 3b. the matching path ----------------------------------------------
     # two overlapping crops of the paper's size from one wide scene; scene
     # b's origin sits at PAIR_OFFSET in scene a, so t = -PAIR_OFFSET
@@ -508,6 +656,16 @@ def main() -> int:
         f"{len(pair_bundles[0])} tiles each, set-up "
         f"{time.perf_counter() - t0:.1f} s")
     match_algs = ("sift", "surf", "brief", "orb")
+    # keep the inputs of every matcher call the path makes, so that phase 4
+    # times the path's matcher launches one by one
+    match_calls = []
+    launch_match = ops._PATH_FNS["cuda_stream"]
+
+    def recorded(q, db, db_valid, *, metric):
+        match_calls.append((q, db, db_valid, metric))
+        return launch_match(q, db, db_valid, metric=metric)
+
+    ops._PATH_FNS["cuda_stream"] = recorded
     torch.cuda.synchronize()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
@@ -526,7 +684,11 @@ def main() -> int:
     t_stitch = time.perf_counter() - t0
     torch.cuda.synchronize()
     match_launches = ops.launch_counts()
+    ops._PATH_FNS["cuda_stream"] = launch_match
     log(f"  matching path launches {match_launches}")
+    require(len(match_calls) == match_launches["matcher"],
+            f"{len(match_calls)} matcher calls recorded for "
+            f"{match_launches['matcher']} launches")
     for name in MATCH_KERNELS + ("fast", "blur"):
         require(match_launches[name] >= 1,
                 f"kernel {name} was not launched on the matching path")
@@ -576,58 +738,97 @@ def main() -> int:
     del feats, reg_k, reg_p, pair_bundles
 
     # ---- 4. timings ---------------------------------------------------------
-    log("timings (median of %d, CUDA events):" % REPS)
+    log("timings (median of %d, CUDA events around one call; [device time "
+        "per call under torch.profiler]):" % REPS)
     n, h, w = x.shape
     r_h = (len(gaussian_kernel_1d(1.0)) - 1) // 2
     rows = {}
-    rows["harris"] = dict(
-        ms=cuda_ms(lambda: ops.harris(x, k=cfg.harris_k)),
-        plain_ms=cuda_ms(lambda: ref.harris(x, k=cfg.harris_k)),
-        work=harris_work(n, h, w, r_h, False), library_ms=None,
-        shape=f"[{n},{h},{w}] harris")
-    rows["fast"] = dict(
-        ms=cuda_ms(lambda: ops.fast_score(x, threshold=cfg.fast_threshold)),
-        plain_ms=cuda_ms(lambda: ref.fast_score(x, threshold=cfg.fast_threshold)),
-        work=fast_work(n, h, w, cfg.fast_arc), library_ms=None,
-        shape=f"[{n},{h},{w}]")
+
+    def timed(fn, plain, work, shape, launches, library_ms=None):
+        row = dict(ms=cuda_ms(fn), plain_ms=cuda_ms(plain),
+                   library_ms=library_ms, shape=shape, launches=launches,
+                   device_ms=device_us_per_call(torch, fn, 10) / 1e3)
+        row["bound_ms"], row["bound_by"] = bound(work)
+        log(f"  {shape:44s} kernel {row['ms']:.4f} ms "
+            f"[{row['device_ms']:.4f}]  plain {row['plain_ms']:.4f} ms  "
+            f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})  library "
+            + ("-" if library_ms is None else f"{library_ms:.4f} ms")
+            + f"  launches per scene {launches}")
+        return row
+
+    def weighted(shape_rows):
+        """Launch-weighted kernel time and bound over the shapes one run of
+        the path gives the kernel."""
+        return (sum(r["launches"] * r["ms"] for r in shape_rows),
+                sum(r["launches"] * r["bound_ms"] for r in shape_rows))
+
+    harris_rows = [
+        timed(lambda: ops.harris(x, k=cfg.harris_k),
+              lambda: ref.harris(x, k=cfg.harris_k),
+              harris_work(n, h, w, r_h, False), f"harris [{n},{h},{w}]", 1),
+        timed(lambda: ops.harris(x, shi_tomasi=True),
+              lambda: ref.harris(x, shi_tomasi=True),
+              harris_work(n, h, w, r_h, True), f"shi_tomasi [{n},{h},{w}]", 1)]
+    rows["harris"] = dict(harris_rows[0])
+    rows["fast"] = timed(
+        lambda: ops.fast_score(x, threshold=cfg.fast_threshold),
+        lambda: ref.fast_score(x, threshold=cfg.fast_threshold),
+        fast_work(n, h, w, cfg.fast_arc), f"fast [{n},{h},{w}]", 1)
+    # every blur the tile-512 path launches: SIFT's base, octave 0's five
+    # increments, BRIEF's and ORB's descriptor blur (one each), SURF's
+    # patches; the F.conv2d yardstick at sigma 1.6 (11 x 11, fp32)
     taps = gaussian_kernel_1d(1.6)
     r_b = (len(taps) - 1) // 2
     xp = reflect_pad(x, r_b)[:, None]
     w2d = torch.from_numpy(np.outer(taps, taps)).to(dev)[None, None]
-    rows["blur"] = dict(
-        ms=cuda_ms(lambda: ops.gaussian_blur(x, 1.6)),
-        plain_ms=cuda_ms(lambda: ref.gaussian_blur(x, 1.6)),
-        library_ms=cuda_ms(lambda: F.conv2d(xp, w2d)),
-        work=blur_work(n, h, w, r_b), shape=f"[{n},{h},{w}] sigma 1.6")
-    b1 = octave_bases[0]
-    radii = [(len(gaussian_kernel_1d(s)) - 1) // 2
-             for s in octave_increments(3, 1.6)]
-    rows["scalespace"] = dict(
-        ms=cuda_ms(lambda: ops.scalespace_octave(
-            b1, scales_per_octave=3, contrast_threshold=thr)),
-        plain_ms=cuda_ms(lambda: ref.scalespace_octave(
-            b1, scales_per_octave=3, contrast_threshold=thr)),
-        work=scalespace_work(*b1.shape, radii), library_ms=None,
-        shape=f"[{b1.shape[0]},{b1.shape[1]},{b1.shape[2]}] octave 1")
-    extra = {
-        "harris shi_tomasi": lambda: ops.harris(x, shi_tomasi=True),
-        "blur patches s=1.0": lambda: ops.gaussian_blur(patches, 1.0),
-        "blur tiles s=2.0": lambda: ops.gaussian_blur(x, 2.0),
-        "blur octave0 inc s=%.3f" % octave_increments(3, 1.6)[-1]:
-            lambda: ops.gaussian_blur(base0, octave_increments(3, 1.6)[-1]),
-        "scalespace octave 2": lambda: ops.scalespace_octave(
-            octave_bases[1], scales_per_octave=3, contrast_threshold=thr),
-        "scalespace octave 3": lambda: ops.scalespace_octave(
-            octave_bases[2], scales_per_octave=3, contrast_threshold=thr),
-    }
-    for name, row in rows.items():
-        row["bound_ms"], row["bound_by"] = bound(row.pop("work"))
-        log(f"  {name:10s} {row['shape']:30s} kernel {row['ms']:.4f} ms  "
-            f"plain {row['plain_ms']:.4f} ms  bound {row['bound_ms']:.4f} ms "
-            f"({row['bound_by']})  library "
-            + ("-" if row["library_ms"] is None else f"{row['library_ms']:.4f} ms"))
-    for name, fn in extra.items():
-        log(f"  {name:41s} kernel {cuda_ms(fn):.4f} ms")
+    conv_ms = cuda_ms(lambda: F.conv2d(xp, w2d))
+    del xp
+    blur_shapes = [(x, 1.6, "tiles s=1.600 (SIFT base)", 1)]
+    blur_shapes += [(base0, s, f"octave0 inc{i} s={s:.3f}", 1)
+                    for i, s in enumerate(incs, 1)]
+    blur_shapes += [(x, 2.0, "tiles s=2.000 (BRIEF, ORB)", 2),
+                    (patches, 1.0, "patches s=1.000 (SURF)", 1)]
+    require(sum(b[3] for b in blur_shapes) == launches["blur"],
+            f"the timed blur shapes are not the {launches['blur']} blur "
+            f"launches of the main path")
+    blur_rows = []
+    for img, sigma, tag, count in blur_shapes:
+        r = (len(gaussian_kernel_1d(sigma)) - 1) // 2
+        bn, bh, bw = img.shape
+        blur_rows.append(timed(
+            lambda img=img, sigma=sigma: ops.gaussian_blur(img, sigma),
+            lambda img=img, sigma=sigma: ref.gaussian_blur(img, sigma),
+            blur_work(bn, bh, bw, r), f"blur [{bn},{bh},{bw}] {tag}", count,
+            conv_ms if sigma == 1.6 else None))
+    rows["blur"] = dict(blur_rows[0])
+    # the scale-space kernel on its own path (tile 256: 961 octaves of 304^2;
+    # the twin on the first 128 of them)
+    ss_radii = [(len(gaussian_kernel_1d(s)) - 1) // 2 for s in incs]
+    rows["scalespace"] = timed(
+        lambda: ops.scalespace_octave(base304, scales_per_octave=3,
+                                      contrast_threshold=thr),
+        lambda: ref.scalespace_octave(base304, scales_per_octave=3,
+                                      contrast_threshold=thr),
+        scalespace_work(*base304.shape, ss_radii),
+        f"scalespace [{base304.shape[0]},304,304] octave 0, tile 256",
+        launches256["scalespace"])
+    base304_all = ops.gaussian_blur(tiles256, 1.6)
+    ss_full = dict(ms=cuda_ms(lambda: ops.scalespace_octave(
+        base304_all, scales_per_octave=3, contrast_threshold=thr)),
+        launches=launches256["scalespace"])
+    ss_full["bound_ms"], _ = bound(scalespace_work(*base304_all.shape,
+                                                   ss_radii))
+    log(f"  scalespace [{tiles256.shape[0]},304,304] (the tile-256 path's "
+        f"launch) kernel {ss_full['ms']:.4f} ms  bound "
+        f"{ss_full['bound_ms']:.4f} ms")
+    del base304_all
+    path_totals = {"harris": weighted(harris_rows),
+                   "fast": weighted([rows["fast"]]),
+                   "blur": weighted(blur_rows),
+                   "scalespace": weighted([ss_full])}
+    for name, (t_ms, b_ms) in path_totals.items():
+        log(f"  {name:10s} launch-weighted over its path: kernel "
+            f"{t_ms:.4f} ms, bound {b_ms:.4f} ms")
 
     # the matcher at the scene pair's shape and on the 1M-row stream
     from repro_torch.kernels import matcher as M
@@ -672,6 +873,31 @@ def main() -> int:
                f"{row['device_us']:.1f} us" if "device_us" in row else ""))
         del q, db, v
     rows["matcher"] = dict(mtimes[("hamming", 2048)], library_ms=None)
+    # the matching path's own launches, each timed on the inputs it was given
+    # (L2 for sift and surf, Hamming for brief and orb and the stitch) with
+    # its own bound from its valid rows
+    match_rows = {}
+    for q, db, v, metric in match_calls:
+        key = (metric, q.shape[0], db.shape[0], q.shape[1], int(v.sum()))
+        if key not in match_rows:
+            b_ms, _ = match_bound(match_work(key[1], key[4], key[2], key[3],
+                                             metric), metric)
+            match_rows[key] = dict(
+                ms=cuda_ms(lambda: M.match(q, db, v, metric=metric)),
+                bound_ms=b_ms, launches=0)
+        match_rows[key]["launches"] += 1
+    for (metric, nq, nk, width, nv), row in match_rows.items():
+        log(f"  matcher on the matching path: {metric:7s} {nq}x{nk}x{width} "
+            f"({nv} valid rows) kernel {row['ms']:.4f} ms  bound "
+            f"{row['bound_ms']:.4f} ms  launches {row['launches']}")
+    require(sum(r["launches"] for r in match_rows.values())
+            == match_launches["matcher"],
+            "the timed matcher launches are not the matching path's")
+    path_totals["matcher"] = weighted(list(match_rows.values()))
+    log(f"  {'matcher':10s} launch-weighted over its path: kernel "
+        f"{path_totals['matcher'][0]:.4f} ms, bound "
+        f"{path_totals['matcher'][1]:.4f} ms")
+    del match_calls
 
     # where the time goes: the scene, stage by stage, kernel route
     stage = {}
@@ -734,17 +960,24 @@ def main() -> int:
             "is not measured")
 
     # ---- 5. results ---------------------------------------------------------
+    # launches: from the run of the path each kernel is on (scalespace: the
+    # tile-256 SIFT run; the matcher: the matching path; the others: the
+    # tile-512 main path)
+    path_launches = {name: launches[name] for name in MAIN_KERNELS}
+    path_launches["scalespace"] = launches256["scalespace"]
+    path_launches["matcher"] = match_launches["matcher"]
     kernels = []
     for name in EXTRACT_KERNELS + MATCH_KERNELS:
         row = rows[name]
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"{CSRC}/{SOURCES[name]}", "replaces": REPLACES[name],
-            "launches": (match_launches if name in MATCH_KERNELS
-                         else launches)[name], "max_abs_err": err[name],
+            "launches": path_launches[name], "max_abs_err": err[name],
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-            "library_ms": row["library_ms"]})
+            "library_ms": row["library_ms"],
+            "launch_weighted_ms": path_totals[name][0],
+            "launch_weighted_bound_ms": path_totals[name][1]})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)

@@ -59,9 +59,13 @@ def _fast_resp(img, cfg, use_kernels):
 
 def _sift_resp(img, cfg, use_kernels):
     # the octave-0 (full-res) extrema map drives keypoints; OpenCV divides
-    # the nominal contrast threshold by scales_per_octave — mirrored here
+    # the nominal contrast threshold by scales_per_octave — mirrored here.
+    # Only octave 0 is computed: octave 0 never depends on the octaves after
+    # it, and no result reads them (the reference's jit drops them as dead
+    # code; the eager port would compute them), so cfg.n_octaves is not
+    # passed.
     return D.sift_dog_response(
-        img, cfg.n_octaves, cfg.scales_per_octave,
+        img, 1, cfg.scales_per_octave,
         cfg.sift_contrast_threshold / cfg.scales_per_octave,
         use_kernels=use_kernels)[0]
 

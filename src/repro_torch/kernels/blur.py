@@ -1,8 +1,9 @@
 """Separable Gaussian blur: wrapper of ``csrc/blur.cu``.
 
 Replaces the Pallas ``repro/kernels/blur.py::blur_kernel``.  On a CUDA
-tensor it launches the kernel; on a CPU tensor it runs the plain twin
-``ref.gaussian_blur``.
+tensor it launches the kernel, which picks its form from the shape
+(images up to 32 x 32 one warp per image) and its staging from the width and
+the alignment; on a CPU tensor it runs the plain twin ``ref.gaussian_blur``.
 """
 from __future__ import annotations
 

@@ -1,8 +1,8 @@
 """Harris / Shi-Tomasi structure-tensor response: wrapper of ``csrc/harris.cu``.
 
 Replaces the Pallas ``repro/kernels/harris.py::harris_kernel``.  On a CUDA
-tensor it launches the kernel; on a CPU tensor it runs the plain twin
-``ref.harris``.
+tensor it launches the kernel, which picks its staging from the width and
+the alignment; on a CPU tensor it runs the plain twin ``ref.harris``.
 """
 from __future__ import annotations
 

@@ -221,6 +221,52 @@ def test_sift_octaves_match_reference():
         close(g, w, rtol=0, atol=1e-6, thr=thr)
 
 
+@pytest.mark.parametrize("use_kernels", [True, False])
+def test_engine_sift_map_is_one_octave_call(monkeypatch, use_kernels):
+    """The engine's SIFT response computes octave 0 alone (one call of
+    ``fused_octave_response``), and its map still equals the reference
+    engine's ``sift_dog_response(..., n_octaves=4)[0]``."""
+    from repro.core import engine as jengine
+    from repro_torch.core import engine
+    real, calls = D.fused_octave_response, []
+
+    def counting(*args, **kwargs):
+        calls.append(args[0].shape)
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(D, "fused_octave_response", counting)
+    img = scenes(120, 176)
+    cfg = DifetConfig()
+    got = engine._sift_resp(torch.from_numpy(img), cfg, use_kernels)
+    assert calls == [(2, 120, 176)]
+    got2 = engine._sift_resp(torch.from_numpy(img), cfg, use_kernels)
+    assert len(calls) == 2 and torch.equal(got, got2)
+    want = jax.jit(functools.partial(jengine._sift_resp, cfg=JaxConfig(),
+                                     use_pallas=use_kernels))(img)
+    thr = cfg.sift_contrast_threshold / cfg.scales_per_octave
+    close(got, want, rtol=0, atol=1e-6, thr=thr)
+
+
+@pytest.mark.parametrize("hw,launches", [((96, 128), 1), ((416, 560), 0)])
+def test_engine_sift_fuses_octave_zero_only_where_the_reference_does(
+        monkeypatch, hw, launches):
+    """At a tile whose octave 0 fuses, the kernel route runs the fused
+    scale-space octave exactly once per SIFT response; where it does not
+    (the paper's 560^2 tiles take the per-level path), never."""
+    from repro_torch.core import engine
+    from repro_torch.kernels import ops
+    real, calls = ops.scalespace_octave, []
+
+    def counting(*args, **kwargs):
+        calls.append(args[0].shape)
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(ops, "scalespace_octave", counting)
+    assert ops.reference_fuses_octave(*hw, 3) == bool(launches)
+    engine._sift_resp(torch.from_numpy(scenes(*hw, n=1)), DifetConfig(), True)
+    assert len(calls) == launches
+
+
 # --- descriptors ------------------------------------------------------------
 def _keypoints(n, k, h, w, seed=0):
     rng = np.random.RandomState(seed)

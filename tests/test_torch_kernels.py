@@ -15,6 +15,7 @@ import torch
 
 from repro.data.landsat import synthetic_scene
 from repro.kernels import ops as jops
+from repro_torch.core.pyramid import gaussian_kernel_1d, octave_increments
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.build import check_image
 
@@ -54,8 +55,13 @@ def test_shi_tomasi_twin_matches_pallas(hw):
     close(got, want, 1e-5, 1e-7, thr=1e-4)
 
 
+# 1.0 (SURF's patches), 3.2, and every sigma the main path blurs with:
+# SIFT's base 1.6, BRIEF's and ORB's 2.0, octave 0's five increments
+MAIN_PATH_SIGMAS = [1.6, 2.0] + list(octave_increments(3, 1.6))
+
+
 @pytest.mark.parametrize("hw", SHAPES + [(22, 22)])
-@pytest.mark.parametrize("sigma", [1.0, 3.2])
+@pytest.mark.parametrize("sigma", [1.0, 3.2] + MAIN_PATH_SIGMAS)
 def test_blur_twin_matches_pallas(hw, sigma):
     img = scenes(*hw)
     got = ops.gaussian_blur(torch.from_numpy(img), sigma)
@@ -155,3 +161,49 @@ def test_twin_blur_is_the_pad_once_convention():
     from repro_torch.core.pyramid import blur_separable
     x = torch.from_numpy(scenes(61, 200))
     assert torch.equal(ref.gaussian_blur(x, 1.6), blur_separable(x, 1.6))
+
+
+def test_main_path_sigmas_are_what_the_engine_blurs_with():
+    radii = [(len(gaussian_kernel_1d(s)) - 1) // 2 for s in MAIN_PATH_SIGMAS]
+    assert radii == [5, 6, 4, 5, 6, 8, 10]
+
+
+def test_divide_by_8_is_multiply_by_one_eighth_bitwise():
+    """The Harris kernel's Sobel divides by 8 as a multiply by 0.125 while
+    its twin divides: both round the same real number x / 8, so they agree
+    on every float32.  Random bit patterns (subnormals included) and the
+    edge values, NaN aside (its bits carry no value)."""
+    rng = np.random.RandomState(0)
+    bits = rng.randint(0, 2 ** 32, 2_000_000, dtype=np.uint64).astype(np.uint32)
+    edge = np.array([0x00000000, 0x80000000, 0x00000001, 0x80000001,
+                     0x00000007, 0x00000008, 0x0000000c, 0x007fffff,
+                     0x00800000, 0x00800001, 0x7f7fffff, 0xff7fffff,
+                     0x7f800000, 0xff800000], np.uint32)
+    sub = rng.randint(0, 0x00800000, 100_000).astype(np.uint32)
+    bits = np.concatenate([bits, edge, sub, sub | 0x80000000])
+    x = bits.view(np.float32)
+    x = x[~np.isnan(x)]
+    with np.errstate(under="ignore"):
+        div = (x / np.float32(8)).view(np.uint32)
+        mul = (x * np.float32(0.125)).view(np.uint32)
+    np.testing.assert_array_equal(div, mul)
+    assert np.isinf(x).sum() >= 2 and (np.abs(x) < 1.18e-38).sum() > 200_000
+
+
+@pytest.mark.parametrize("kernel", ["blur", "harris", "shi_tomasi"])
+def test_offset_view_matches_pallas(kernel):
+    """A view one float into a buffer: contiguous, but its rows are 4 bytes
+    off 16-byte alignment (on the card it takes the scalar staging)."""
+    img = scenes(64, 64)
+    view = torch.zeros(1 + img.size)[1:].view(img.shape)
+    view.copy_(torch.from_numpy(img))
+    assert view.is_contiguous() and view.data_ptr() % 16 == 4
+    check_image(view, kernel)
+    if kernel == "blur":
+        close(ops.gaussian_blur(view, 1.6), jops.gaussian_blur(img, 1.6),
+              1e-5, 1e-6)
+    else:
+        shi = kernel == "shi_tomasi"
+        close(ops.harris(view, k=0.04, shi_tomasi=shi),
+              jops.harris(img, k=0.04, shi_tomasi=shi), 1e-5, 1e-7,
+              thr=1e-4 if shi else 1e-6)
