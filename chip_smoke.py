@@ -14,8 +14,13 @@ Run from the root of a checkout, with no arguments: ``python3 chip_smoke.py``.
    shapes that reach every branch of their design (every radius 1-16 on
    [3, 97, 131], images smaller than their radius, 1001 patches, N = 1, a
    misaligned view that must take the scalar staging); FAST within
-   tolerance; the SIFT octave at 304^2 (octave 0 at tile 256), at the
-   higher octaves of a 560^2 tile, at 10^2 and at an odd width.
+   tolerance; the SIFT octave bit for bit at 304^2 (octave 0 at tile 256),
+   at the higher octaves of a 560^2 tile, at 10^2, at an odd width, for
+   three other octaves (2 scales at sigma0 1.6, 3 at 1.2, and 6 at 3.6,
+   whose rings let one block on an SM) at 81 x 200 and 304^2, at N = 1, on
+   a misaligned view, and at a width one column past the default strip;
+   and every octave the wrapper accepts (spo 1-6, sigma0 0.3-6) must get a
+   launch geometry from the kernel.
 3. Drives the main path: ``extract_features_multi`` over the paper's full
    scene (7681 x 7831, 256 tiles of 560^2, ``DifetConfig()``, all seven
    algorithms) through the kernels, with every launch counter set to 0
@@ -27,13 +32,17 @@ Run from the root of a checkout, with no arguments: ``python3 chip_smoke.py``.
    tolerance.  Then the scale-space kernel's own path: SIFT over the same
    scene at tile 256 (961 tiles of 304^2, the reference's
    ``launch/extract.py`` defaults), where octave 0 fuses: the kernel must
-   launch, two runs must be bitwise equal, and the run is timed.
+   launch, two runs must be bitwise equal, and the run is timed; on the
+   first 64 of those tiles the kernel route must equal the plain route.
 4. Times each kernel, its twin and a library yardstick where one exists
    (CUDA events around one call, median of 5 after warm-up, and the
    device time per call under ``torch.profiler``), each kernel's bound
    from bytes at 3.35 TB/s and fp32 operations at 67 TFLOP/s: every blur
    shape the main path launches with its launches per scene, and each
-   kernel's launch-weighted total over its path; a per-stage breakdown of
+   kernel's launch-weighted total over its path; the scale-space launch of
+   the tile-256 path (961 octaves of 304^2) by events and under the
+   profiler, with its strip width, grid, blocks per SM and its issue floor
+   at its own geometry; a per-stage breakdown of
    the scene, and the end-to-end map/reduce with its peak memory, for the
    scene and for a quarter of it (its first 64 tiles).
 5. The matching path (``core/matching.py``, ``launch/stitch.py``): holds
@@ -73,6 +82,10 @@ QUARTER = 64               # tiles of the quarter scene timed beside the scene
 REPS = 5                   # timed repetitions (median)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, data sheet
 FP32_OPS_PER_S = 67e12     # H100 SXM fp32 outside the tensor cores
+# fp32 instructions issued: 128 lanes per clock per SM, 132 SMs, 1.98 GHz
+# (an uncontracted multiply or add is one issue, so exact order cannot
+# reach the 67 TFLOP/s that counts an FMA as two)
+FP32_ISSUES_PER_S = 128 * 132 * 1.98e9
 # __popc: 16 per clock per SM at compute capability 9.0 (CUDA C++
 # Programming Guide, arithmetic instruction throughput), 132 SMs, at the
 # 1.98 GHz boost clock behind the 67 TFLOP/s fp32 figure
@@ -130,7 +143,14 @@ def kernel_label(mangled):
         t = re.match(r"ILi(\d+)E", rest)
         if name.isidentifier() and t:
             return f"{name}<{t.group(1)}>"
-    return mangled[-28:]
+    # a plain kernel: the last <length><name> of its (nested) name
+    i, names = (3 if mangled.startswith("_ZN") else 2), []
+    while (d := re.match(r"\d+", mangled[i:])) is not None:
+        j = i + d.end()
+        names.append(mangled[j:j + int(d.group(0))])
+        i = j + int(d.group(0))
+    names = [n for n in names if not n.startswith("_GLOBAL")]
+    return names[-1] if names else mangled[-28:]
 
 
 def log(*args):
@@ -215,6 +235,22 @@ def scalespace_work(n, h, w, radii):
     ops += levels * ((h + 2) * w * 4 + h * w * 4) + mids * h * w * 2
     ops += h * w * (12 * mids - 1)
     return n * ops, n * h * w * 12
+
+
+def scalespace_issue_ops(n, h, w, radii, wt):
+    """fp32 instructions of the strip kernel's blur and DoG at its own
+    geometry, in exact order (a tap is a multiply and an add: 4r + 1 an
+    output of a pass): every strip computes level s over wt + 2 m_s columns,
+    its W pass over the rows of level s - 1 and its H pass over its own."""
+    m = [sum(radii) + 1]
+    for r in radii:
+        m.append(m[-1] - r)
+    ops = 0
+    for s, r in enumerate(radii, start=1):
+        cols = wt + 2 * m[s]
+        ops += cols * (h + 2 * m[s - 1] + h + 2 * m[s]) * (4 * r + 1)
+        ops += (wt + 2) * (h + 2)                         # DoG
+    return n * -(-w // wt) * ops
 
 
 def bound(work):
@@ -365,6 +401,34 @@ def register_all(torch, matching, feats, algs, use_kernels):
     return out
 
 
+def same_routes(alg, k, p, max_keypoints):
+    """Kernel route ``k`` against plain route ``p`` for one algorithm:
+    counts, keypoints, valid flags and packed descriptor bits equal; scores
+    and float descriptors within 1e-5.  Returns the total count."""
+    import torch
+    for key in ("total_count", "per_tile_count", "top_ys", "top_xs",
+                "top_valid", "keypoint_count"):
+        require(torch.equal(k[key], p[key]),
+                f"{alg}/{key}: kernel route != plain route")
+    require(torch.allclose(k["top_scores"], p["top_scores"],
+                           rtol=1e-5, atol=1e-7),
+            f"{alg}/top_scores beyond tolerance")
+    require(bool(torch.isfinite(k["top_scores"]).all()),
+            f"{alg}: non-finite scores")
+    require(k["top_ys"].shape == (4 * max_keypoints,), f"{alg}: top-K shape")
+    if "top_desc" in k:
+        if k["top_desc"].dtype == torch.int32:
+            require(torch.equal(k["top_desc"], p["top_desc"]),
+                    f"{alg}: packed descriptor bits differ")
+        else:
+            require(bool(torch.isfinite(k["top_desc"]).all()),
+                    f"{alg}: non-finite descriptors")
+            require(torch.allclose(k["top_desc"], p["top_desc"],
+                                   rtol=1e-5, atol=1e-5),
+                    f"{alg}: float descriptors beyond tolerance")
+    return int(k["total_count"])
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke: run from the root of a checkout (src/repro_torch "
@@ -389,6 +453,7 @@ def main() -> int:
         octave_increments)
     from repro_torch.data.landsat import synthetic_scene
     from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels import scalespace as SS
 
     # the port runs no matmul or convolution; the conv2d yardstick below is
     # held to full fp32 as well
@@ -457,8 +522,8 @@ def main() -> int:
     def rand(*shape):
         return torch.from_numpy(rng.rand(*shape).astype(np.float32)).to(dev)
 
-    log("kernels vs plain twins on the card (blur and harris bitwise, "
-        "fast within rtol 1e-5 atol 1e-6, scalespace within atol 1e-5):")
+    log("kernels vs plain twins on the card (blur, harris and scalespace "
+        "bitwise, fast within rtol 1e-5 atol 1e-6):")
     x = tiles
     odd = rand(3, 61, 200)
     # the kernels stage with 16-byte copies only where W % 4 == 0 and the
@@ -511,9 +576,12 @@ def main() -> int:
         err["blur"] = max(err["blur"], e)
     del odd_r, buf, misaligned
     thr = cfg.sift_contrast_threshold / cfg.scales_per_octave
-    # octave shapes: 304^2 (octave 0 at tile 256, the path that runs the
-    # kernel), the higher octaves of a 560^2 tile (280, 140, 70), a 10^2
-    # octave smaller than its pad, an odd width
+    # the scale-space octave, bit for bit: 304^2 (octave 0 at tile 256, the
+    # path that runs the kernel), the higher octaves of a 560^2 tile (280,
+    # 140, 70), a 10^2 octave smaller than its pad, an odd width, two other
+    # octaves (other radii; spo 6 at sigma0 3.6 lets one block on an SM) at
+    # 81 x 200 and 304^2, N = 1, a view one float into a buffer, and a width
+    # one column past the default strip (two strips, evened out)
     cfg256 = DifetConfig(tile=256, halo=24, max_keypoints_per_tile=256)
     bundle256 = tile_scene(scene, cfg256)
     tiles256 = torch.from_numpy(bundle256.tiles).to(dev)
@@ -521,23 +589,62 @@ def main() -> int:
     require(tiles256.shape == (961, 304, 304), "the scene must cut into "
             "961 tiles of 304^2 at tile 256")
     base304 = ops.gaussian_blur(tiles256[:128], 1.6)
+    ss_radii = [(len(gaussian_kernel_1d(s)) - 1) // 2 for s in incs]
+    ss_wt = SS.geometry(3, 1.6, 304)[0]
+    one_block = SS.geometry(6, 3.6, 304)
+    log(f"  scalespace geometry of spo 6 at sigma0 3.6, 304 wide: strip "
+        f"{one_block[0]}, {one_block[1]} B a block, {one_block[2]} block(s) "
+        f"per SM")
+    require(one_block[2] == 1, "spo 6 at sigma0 3.6 must take the kernel's "
+            "one-block layout")
+    n_octaves = 0
+    for spo in range(1, 7):
+        for s0 in np.arange(0.3, 6.0, 0.01):
+            try:
+                SS.octave_taps(spo, float(s0))
+            except ValueError:
+                continue                       # beyond the kernel's limits
+            for w in (10, 304):
+                require(SS.geometry(spo, float(s0), w)[2] >= 1,
+                        f"spo {spo} sigma0 {s0:.2f} does not fit an SM")
+            n_octaves += 1
+    log(f"  scalespace geometry: all {n_octaves} octaves the wrapper accepts "
+        f"(spo 1-6, sigma0 0.3-6 by 0.01) get a strip at widths 10 and 304")
     octave_bases = []
     base = ref.gaussian_blur(x, 1.6)
     for _ in range(3):
         _, seed = fused_octave_response(base, 3, thr)
         base = downsample2(seed)
         octave_bases.append(base)                   # 280^2, 140^2, 70^2
-    tiny = octave_bases[-1][:4, :10, :10].contiguous()
-    oddb = ref.gaussian_blur(odd[:, :, :199].contiguous(), 1.6)
-    for b in [base304] + octave_bases + [tiny, oddb]:
-        got = ops.scalespace_octave(b, scales_per_octave=3, contrast_threshold=thr)
-        want = ref.scalespace_octave(b, scales_per_octave=3, contrast_threshold=thr)
-        h = b.shape[-1]
+    ss_buf = torch.empty(1 + 2 * 304 * 304, device=dev)
+    ss_view = ss_buf[1:].view(2, 304, 304)
+    ss_view.copy_(base304[:2])
+    require(ss_view.data_ptr() % 16 == 4, "the view must be 4 bytes off")
+    ss_cases = [(base304, 3, 1.6, "304^2"),
+                *[(b, 3, 1.6, f"{b.shape[-1]}^2") for b in octave_bases],
+                (octave_bases[-1][:4, :10, :10].contiguous(), 3, 1.6, "10^2"),
+                (ref.gaussian_blur(odd[:, :, :199].contiguous(), 1.6), 3, 1.6,
+                 "odd width 199"),
+                (base304[:1], 3, 1.6, "N=1"),
+                (ss_view, 3, 1.6, "misaligned view"),
+                (base304[:4, :, :ss_wt + 1].contiguous(), 3, 1.6,
+                 f"width {ss_wt + 1}")]
+    for spo, s0 in ((2, 1.6), (3, 1.2), (6, 3.6)):
+        ss_cases += [(ref.gaussian_blur(rand(4, 81, 200), s0), spo, s0,
+                      "81x200"),
+                     (ref.gaussian_blur(tiles256[:16], s0), spo, s0, "304^2")]
+    for b, spo, s0, tag in ss_cases:
+        kw = dict(scales_per_octave=spo, contrast_threshold=thr, sigma0=s0)
+        got = ops.scalespace_octave(b, **kw)
+        want = ref.scalespace_octave(b, **kw)
+        tag = f"{tag} spo {spo} s0 {s0}"
         err["scalespace"] = max(
             err["scalespace"],
-            hold(f"scalespace resp {h}", got[0], want[0], 0.0, 1e-5, thr=thr),
-            hold(f"scalespace seed {h}", got[1], want[1], 0.0, 1e-5))
-    del got, want, octave_bases, tiny, oddb
+            hold(f"scalespace resp {tag}", got[0], want[0], 0, 0, thr=thr,
+                 bitwise=True),
+            hold(f"scalespace seed {tag}", got[1], want[1], 0, 0,
+                 bitwise=True))
+    del got, want, octave_bases, ss_cases, ss_buf, ss_view
     torch.cuda.synchronize()
     err["matcher"] = check_matcher(torch, np, dev)
 
@@ -575,32 +682,9 @@ def main() -> int:
 
     res_p = run(False)
     torch.cuda.synchronize()
-    exact = ("total_count", "per_tile_count", "top_ys", "top_xs",
-             "top_valid", "keypoint_count")
-    counts = {}
-    for alg in PAPER_ALGORITHMS:
-        k, p = res_k[alg], res_p[alg]
-        for key in exact:
-            require(torch.equal(k[key], p[key]),
-                    f"{alg}/{key}: kernel route != plain route")
-        require(torch.allclose(k["top_scores"], p["top_scores"],
-                               rtol=1e-5, atol=1e-7),
-                f"{alg}/top_scores beyond tolerance")
-        require(bool(torch.isfinite(k["top_scores"]).all()),
-                f"{alg}: non-finite scores")
-        require(k["top_ys"].shape == (4 * cfg.max_keypoints_per_tile,),
-                f"{alg}: top-K shape")
-        if "top_desc" in k:
-            if k["top_desc"].dtype == torch.int32:
-                require(torch.equal(k["top_desc"], p["top_desc"]),
-                        f"{alg}: packed descriptor bits differ")
-            else:
-                require(bool(torch.isfinite(k["top_desc"]).all()),
-                        f"{alg}: non-finite descriptors")
-                require(torch.allclose(k["top_desc"], p["top_desc"],
-                                       rtol=1e-5, atol=1e-5),
-                        f"{alg}: float descriptors beyond tolerance")
-        counts[alg] = int(k["total_count"])
+    counts = {alg: same_routes(alg, res_k[alg], res_p[alg],
+                               cfg.max_keypoints_per_tile)
+              for alg in PAPER_ALGORITHMS}
     log("  plain route agrees: counts, keypoints, valid flags and packed "
         "bits equal; scores and float descriptors within 1e-5")
     log("table2_counts " + json.dumps(counts))
@@ -638,6 +722,17 @@ def main() -> int:
         f"{int(res256['total_count'])}; first run {t256_first:.3f} s, "
         f"median of {REPS} {t256:.4f} s")
     del res256, res256b
+    # kernel route = plain route on the first QUARTER tiles (the plain
+    # route holds a 26-neighbour stack of the whole batch)
+    sub = [engine.extract_features_multi(
+        tiles256[:QUARTER], headers256[:QUARTER], ("sift",), cfg256,
+        use_kernels=use, device=dev)["sift"] for use in (True, False)]
+    n_sub = same_routes("sift (tile 256)", *sub,
+                        cfg256.max_keypoints_per_tile)
+    log(f"  first {QUARTER} tiles: kernel route = plain route (counts, "
+        f"keypoints, valid flags equal; scores and descriptors within "
+        f"1e-5); sift count {n_sub}")
+    del sub
 
     # ---- 3b. the matching path ----------------------------------------------
     # two overlapping crops of the paper's size from one wide scene; scene
@@ -803,7 +898,6 @@ def main() -> int:
     rows["blur"] = dict(blur_rows[0])
     # the scale-space kernel on its own path (tile 256: 961 octaves of 304^2;
     # the twin on the first 128 of them)
-    ss_radii = [(len(gaussian_kernel_1d(s)) - 1) // 2 for s in incs]
     rows["scalespace"] = timed(
         lambda: ops.scalespace_octave(base304, scales_per_octave=3,
                                       contrast_threshold=thr),
@@ -813,14 +907,31 @@ def main() -> int:
         f"scalespace [{base304.shape[0]},304,304] octave 0, tile 256",
         launches256["scalespace"])
     base304_all = ops.gaussian_blur(tiles256, 1.6)
-    ss_full = dict(ms=cuda_ms(lambda: ops.scalespace_octave(
-        base304_all, scales_per_octave=3, contrast_threshold=thr)),
-        launches=launches256["scalespace"])
+
+    def ss_launch():
+        return ops.scalespace_octave(base304_all, scales_per_octave=3,
+                                     contrast_threshold=thr)
+
+    ss_full = dict(ms=cuda_ms(ss_launch), launches=launches256["scalespace"],
+                   device_ms=device_us_per_call(torch, ss_launch, 3) / 1e3)
     ss_full["bound_ms"], _ = bound(scalespace_work(*base304_all.shape,
                                                    ss_radii))
-    log(f"  scalespace [{tiles256.shape[0]},304,304] (the tile-256 path's "
-        f"launch) kernel {ss_full['ms']:.4f} ms  bound "
-        f"{ss_full['bound_ms']:.4f} ms")
+    ss_n, ss_h, ss_w = base304_all.shape
+    ss_wt, ss_smem, ss_per_sm = SS.geometry(3, 1.6, ss_w)
+    ss_strips = -(-ss_w // ss_wt)
+    ss_floor = scalespace_issue_ops(ss_n, ss_h, ss_w, ss_radii, ss_wt) \
+        / FP32_ISSUES_PER_S * 1e3
+    log(f"  scalespace [{ss_n},{ss_h},{ss_w}] (the tile-256 path's launch) "
+        f"kernel {ss_full['ms']:.4f} ms [{ss_full['device_ms']:.4f}]  bound "
+        f"{ss_full['bound_ms']:.4f} ms; exact-order issue floor at its own "
+        f"geometry {ss_floor:.4f} ms (tap passes of 4r + 1 fp32 "
+        f"instructions an output over each level's strip width and rows, "
+        f"and the DoG, at {FP32_ISSUES_PER_S:.4g}/s)")
+    log(f"  scalespace geometry: strip width {ss_wt}, {ss_strips} strips an "
+        f"image, grid {ss_n * ss_strips} blocks, {ss_smem} B of shared "
+        f"memory a block, {ss_per_sm} blocks per SM")
+    require(ss_per_sm >= 2, "the scale-space kernel must fit two blocks "
+            "on an SM at the default octave")
     del base304_all
     path_totals = {"harris": weighted(harris_rows),
                    "fast": weighted([rows["fast"]]),

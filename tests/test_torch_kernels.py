@@ -91,7 +91,7 @@ def test_scalespace_twin_matches_pallas(hw):
     close(got[1], want[1], 0.0, 1e-5)
 
 
-@pytest.mark.parametrize("spo,sigma0", [(2, 1.6), (3, 1.2)])
+@pytest.mark.parametrize("spo,sigma0", [(2, 1.6), (3, 1.2), (6, 3.6)])
 def test_scalespace_twin_other_octaves(spo, sigma0):
     base = ref.gaussian_blur(torch.from_numpy(scenes(81, 200)), sigma0).numpy()
     thr = 0.04 / spo
@@ -102,6 +102,29 @@ def test_scalespace_twin_other_octaves(spo, sigma0):
                                   contrast_threshold=thr, sigma0=sigma0)
     close(got[0], want[0], 0.0, 1e-5, thr=thr)
     close(got[1], want[1], 0.0, 1e-5)
+
+
+# the widest octaves the kernel takes at 7 and 8 levels (radii up to 16;
+# their rings let one block on an SM), and octaves beyond it: 9 levels, or
+# a radius above 16 (17 at spo 5, sigma0 4.12 and at spo 6, sigma0 4.66)
+WITHIN = [(5, 4.1), (6, 4.65)]
+BEYOND = [(7, 1.6), (3, 3.2), (5, 4.12), (6, 4.66), (1, 0.8)]
+
+
+@pytest.mark.parametrize("spo,sigma0", WITHIN)
+def test_scalespace_within_the_kernel_runs(spo, sigma0):
+    x = torch.from_numpy(scenes(12, 20, n=1))
+    kw = dict(scales_per_octave=spo, contrast_threshold=0.04 / spo,
+              sigma0=sigma0)
+    got, want = ops.scalespace_octave(x, **kw), ref.scalespace_octave(x, **kw)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("spo,sigma0", BEYOND)
+def test_scalespace_beyond_the_kernel_raises(spo, sigma0):
+    with pytest.raises(ValueError):
+        ops.scalespace_octave(torch.zeros(1, 16, 16), scales_per_octave=spo,
+                              contrast_threshold=0.01, sigma0=sigma0)
 
 
 def test_scalespace_pad_matches_reference():
