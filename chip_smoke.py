@@ -13,8 +13,13 @@ Run from the root of a checkout, with no arguments: ``python3 chip_smoke.py``.
    560^2; every blur sigma of the path; 131072 patches of 22^2) and at
    shapes that reach every branch of their design (every radius 1-16 on
    [3, 97, 131], images smaller than their radius, 1001 patches, N = 1, a
-   misaligned view that must take the scalar staging); FAST within
-   tolerance; the SIFT octave bit for bit at 304^2 (octave 0 at tile 256),
+   misaligned view that must take the scalar staging); FAST bit for bit
+   on the tiles at the scene's threshold 0.15 and the stitch's 0.08, on
+   uniform noise (most pixels pass its compass pre-test), on a constant
+   image (none does), on [3, 97, 131] (scalar staging), a misaligned view,
+   N = 1, images smaller than its pad (3^2, 2^2, 1 x 7), and at every arc
+   1-16 at thresholds 0, 0.05 and 0.15; the SIFT octave bit for bit at
+   304^2 (octave 0 at tile 256),
    at the higher octaves of a 560^2 tile, at 10^2, at an odd width, for
    three other octaves (2 scales at sigma0 1.6, 3 at 1.2, and 6 at 3.6,
    whose rings let one block on an SM) at 81 x 200 and 304^2, at N = 1, on
@@ -29,11 +34,18 @@ Run from the root of a checkout, with no arguments: ``python3 chip_smoke.py``.
    level and no result reads octaves 1-3); runs it again and requires
    bitwise equal results; runs the plain route (no kernels) and requires
    equal counts, keypoints and descriptor bits, and float results within
-   tolerance.  Then the scale-space kernel's own path: SIFT over the same
-   scene at tile 256 (961 tiles of 304^2, the reference's
-   ``launch/extract.py`` defaults), where octave 0 fuses: the kernel must
-   launch, two runs must be bitwise equal, and the run is timed; on the
-   first 64 of those tiles the kernel route must equal the plain route.
+   tolerance; both routes' per-tile counts must equal the JAX reference's
+   (``src/repro_torch/data/reference_counts.json``, written on the CPU by
+   ``tests/test_torch_reference_counts.py``: its run without FMA
+   contraction, one rounding per operation as the port's; tiles where its
+   FMA run differs are printed).  Then the scale-space
+   kernel's own path: SIFT over the same scene at tile 256 (961 tiles of
+   304^2, the reference's ``launch/extract.py`` defaults), where octave 0
+   fuses: the kernel must launch, two runs must be bitwise equal, and the
+   run is timed; on all 961 tiles, 64 at a time, the kernel route's
+   per-tile counts must equal the reference's Pallas route and the plain
+   route's its plain route, a tile where the two port routes differ is
+   printed, and where their counts agree the keypoints must too.
 4. Times each kernel, its twin and a library yardstick where one exists
    (CUDA events around one call, median of 5 after warm-up, and the
    device time per call under ``torch.profiler``), each kernel's bound
@@ -42,7 +54,13 @@ Run from the root of a checkout, with no arguments: ``python3 chip_smoke.py``.
    kernel's launch-weighted total over its path; the scale-space launch of
    the tile-256 path (961 octaves of 304^2) by events and under the
    profiler, with its strip width, grid, blocks per SM and its issue floor
-   at its own geometry; a per-stage breakdown of
+   at its own geometry; FAST on the tiles at thresholds 0.15 and 0.08 and
+   on uniform noise, each with the share of pixels that pass its compass
+   pre-test (counted by torch ops, not by the kernel) and two issue floors
+   (the full test on every pixel, the pre-test alone), and the same kernel
+   with its pre-test off (m = 0, bitwise as well) on the tiles and on
+   noise; a per-stage
+   breakdown of
    the scene, and the end-to-end map/reduce with its peak memory, for the
    scene and for a quarter of it (its first 64 tiles).
 5. The matching path (``core/matching.py``, ``launch/stitch.py``): holds
@@ -91,6 +109,7 @@ FP32_ISSUES_PER_S = 128 * 132 * 1.98e9
 # 1.98 GHz boost clock behind the 67 TFLOP/s fp32 figure
 POPC_PER_S = 132 * 16 * 1.98e9
 CSRC = "src/repro_torch/kernels/csrc"
+REFERENCE_COUNTS = ROOT / "src" / "repro_torch" / "data" / "reference_counts.json"
 REPLACES = {
     "harris": "src/repro/kernels/harris.py:44",
     "fast": "src/repro/kernels/fastscore.py:20",
@@ -106,6 +125,7 @@ EXTRACT_KERNELS = ("harris", "fast", "blur", "scalespace")
 MAIN_KERNELS = ("harris", "fast", "blur")     # the tile-512 path's kernels
 MATCH_KERNELS = ("matcher",)
 PAIR_OFFSET = (16, 1958)   # scene b's origin in scene a, full-size pair
+STITCH_FAST_THRESHOLD = 0.08   # launch/stitch.py's FAST threshold
 STITCH_ARGS = ["--scenes", "4", "--scene-size", "2048", "--overlap", "512",
                "--tile", "512", "--max-keypoints", "512", "--algorithm",
                "orb"]
@@ -207,9 +227,51 @@ def harris_work(n, h, w, r, shi):
     return n * (grad + wpass + hpass + resp), n * h * w * 8
 
 
-def fast_work(n, h, w, arc):
-    per = 2 + 16 * 7 + 2 * (2 * (arc - 1) + 2) + 1
-    return n * h * w * per, n * h * w * 8
+def fast_ops(arc):
+    """(pre-test, full test) operations an output.  The compass pre-test:
+    centre + t and centre - t, 8 compares, 8 to pack the two 4-bit flag
+    sets, 4 to look them up.  The full test: per ring pixel 2 compares,
+    v - c, its absolute value, - t and two masked adds (16 x 7), 32 to pack
+    the two 16-bit flag masks, each mask's arc test (double it, arc - 1
+    shift-ANDs, mask and test: 2 (arc - 1) + 3), their or, the max and the
+    select."""
+    return 2 + 8 + 8 + 4, 16 * 7 + 32 + 2 * (2 * (arc - 1) + 3) + 3
+
+
+def fast_work(n, h, w, arc, survivors):
+    """The pre-test on every output and the full test on the ``survivors``
+    that pass it (the data's own need: the others are exactly 0)."""
+    pre, full = fast_ops(arc)
+    return n * h * w * pre + survivors * full, n * h * w * 8
+
+
+def compass_survivors(torch, x, t, arc):
+    """Pixels of ``x`` that pass FAST's compass pre-test at threshold t:
+    the compass points (ring indices 0, 4, 8, 12) hold a circular run of
+    ``arc // 4`` brighter or darker ones.  Plain torch ops on the card."""
+    from repro_torch.core.padding import reflect_pad
+    from repro_torch.core.pyramid import f32
+    m, t = arc // 4, f32(t)
+    if m == 0:
+        return x.numel()
+    h, w = x.shape[-2:]
+    xp = reflect_pad(x, 3)
+    c = xp[..., 3:3 + h, 3:3 + w]
+    pts = [xp[..., 3 + dy:3 + dy + h, 3 + dx:3 + dx + w]
+           for dy, dx in ((-3, 0), (0, 3), (3, 0), (0, -3))]
+
+    def run(flags):
+        hit = None
+        for s0 in range(4):
+            r = flags[s0]
+            for j in range(1, m):
+                r = r & flags[(s0 + j) % 4]
+            hit = r if hit is None else hit | r
+        return hit
+
+    hi, lo = c + t, c - t
+    return int((run([p > hi for p in pts]) | run([p < lo for p in pts]))
+               .sum())
 
 
 def blur_work(n, h, w, r):
@@ -388,6 +450,28 @@ def device_us_per_call(torch, fn, n):
                if ev.device_type == torch.autograd.DeviceType.CUDA) / n
 
 
+def against_reference(tag, per_tile, modes):
+    """The port's per-tile counts against the reference's: equal on every
+    tile to its run without FMA ("no_fma", one rounding per operation, as
+    the port computes); a tile where they differ from its run as XLA builds
+    it for an FMA CPU ("fma", multiply-adds contracted) is printed, and
+    must be one where the reference's two runs differ."""
+    exact, fma = modes["no_fma"]["per_tile"], modes["fma"]["per_tile"]
+    require(len(per_tile) == len(exact), f"{tag}: {len(per_tile)} tiles, "
+            f"the reference has {len(exact)}")
+    bad = [(i, a, b) for i, (a, b) in enumerate(zip(per_tile, exact))
+           if a != b]
+    require(not bad, f"{tag}: per-tile counts differ from the reference's "
+            f"(tile, port, reference): {bad[:20]}")
+    moved = [(i, a, fma[i]) for i, a in enumerate(per_tile) if a != fma[i]]
+    require(all(exact[i] != fma[i] for i, _, _ in moved),
+            f"{tag}: differs from the reference's FMA run where its two "
+            f"runs agree")
+    log(f"  {tag}: per-tile counts equal the reference's (no FMA) on all "
+        f"{len(per_tile)} tiles (total {sum(per_tile)}); its FMA run "
+        f"differs at {len(moved)} tile(s) (tile, port, FMA run): {moved}")
+
+
 def register_all(torch, matching, feats, algs, use_kernels):
     """register_pair (translation) for each algorithm on scene a -> b."""
     out = {}
@@ -449,7 +533,7 @@ def main() -> int:
     from repro_torch.core.bundle import tile_scene
     from repro_torch.core.padding import reflect_pad
     from repro_torch.core.pyramid import (
-        downsample2, fused_octave_response, gaussian_kernel_1d,
+        downsample2, f32, fused_octave_response, gaussian_kernel_1d,
         octave_increments)
     from repro_torch.data.landsat import synthetic_scene
     from repro_torch.kernels import build, ops, ref
@@ -462,6 +546,12 @@ def main() -> int:
     dev = torch.device("cuda")
     log("torch", torch.__version__, "cuda", torch.version.cuda,
         "device", torch.cuda.get_device_name(0))
+    phase_start = [time.perf_counter()]
+
+    def phase_done(name):
+        now = time.perf_counter()
+        log(f"phase {name}: {now - phase_start[0]:.1f} s")
+        phase_start[0] = now
 
     # ---- 1. build -----------------------------------------------------------
     t0 = time.perf_counter()
@@ -481,6 +571,8 @@ def main() -> int:
                 f"static shared, spills {spill}")
             require(spill == "0 B stores, 0 B loads",
                     f"{name}: {entry} spills registers")
+
+    phase_done("1 (build)")
 
     # ---- inputs: the paper's scene, tiled -----------------------------------
     cfg = DifetConfig()
@@ -522,8 +614,8 @@ def main() -> int:
     def rand(*shape):
         return torch.from_numpy(rng.rand(*shape).astype(np.float32)).to(dev)
 
-    log("kernels vs plain twins on the card (blur, harris and scalespace "
-        "bitwise, fast within rtol 1e-5 atol 1e-6):")
+    log("kernels vs plain twins on the card (blur, harris, fast and "
+        "scalespace bitwise):")
     x = tiles
     odd = rand(3, 61, 200)
     # the kernels stage with 16-byte copies only where W % 4 == 0 and the
@@ -549,11 +641,34 @@ def main() -> int:
                                 shi_tomasi=shi),
                      0, 0, bitwise=True)
             err["harris"] = max(err["harris"], e)
-    for img, tag in ((x, "tiles"), (odd, "odd")):
-        e = hold(f"fast {tag}", ops.fast_score(img, threshold=cfg.fast_threshold),
-                 ref.fast_score(img, threshold=cfg.fast_threshold),
-                 1e-5, 1e-6, thr=0.0)
+    # FAST: the scene's threshold and the stitch's (launch/stitch.py), noise
+    # (most pixels pass the compass pre-test) and a constant image (none
+    # does), the scalar staging, N = 1, images smaller than the pad of 3,
+    # and every arc (m = arc // 4 from 0 to 4) at three thresholds
+    noise = rand(*x.shape)
+    fast_cases = [(x, cfg.fast_threshold, cfg.fast_arc, "tiles"),
+                  (x, STITCH_FAST_THRESHOLD, cfg.fast_arc, "tiles"),
+                  (noise, cfg.fast_threshold, cfg.fast_arc, "uniform noise"),
+                  (torch.full((2, 100, 100), 0.5, device=dev),
+                   cfg.fast_threshold, cfg.fast_arc, "constant"),
+                  (odd, cfg.fast_threshold, cfg.fast_arc, "odd"),
+                  (odd_r, cfg.fast_threshold, cfg.fast_arc, "odd_r"),
+                  (misaligned, cfg.fast_threshold, cfg.fast_arc,
+                   "misaligned view"),
+                  (rand(1, 560, 560), cfg.fast_threshold, cfg.fast_arc,
+                   "N=1")]
+    fast_cases += [(rand(2, hh, ww), 0.0, cfg.fast_arc, f"{hh}x{ww} < pad")
+                   for hh, ww in ((3, 3), (2, 2), (1, 7))]
+    fast_cases += [(odd_r, t, arc, f"odd_r arc {arc}") for arc in range(1, 17)
+                   for t in (0.0, 0.05, 0.15)]
+    for img, t, arc, tag in fast_cases:
+        e = hold(f"fast t={t:g} {tag}" + ("" if "arc" in tag
+                                          else f" arc {arc}"),
+                 ops.fast_score(img, threshold=t, arc=arc),
+                 ref.fast_score(img, threshold=t, arc=arc), 0, 0,
+                 bitwise=True)
         err["fast"] = max(err["fast"], e)
+    del fast_cases
     base0 = ops.gaussian_blur(x, 1.6)
     kp_shape = (x.shape[0], cfg.max_keypoints_per_tile)
     ys = torch.from_numpy(rng.randint(24, 536, kp_shape)).to(dev)
@@ -648,6 +763,8 @@ def main() -> int:
     torch.cuda.synchronize()
     err["matcher"] = check_matcher(torch, np, dev)
 
+    phase_done("2 (kernels against their twins)")
+
     # ---- 3. the main path ---------------------------------------------------
     def run(use_kernels, n=None):
         return engine.extract_features_multi(
@@ -688,7 +805,16 @@ def main() -> int:
     log("  plain route agrees: counts, keypoints, valid flags and packed "
         "bits equal; scores and float descriptors within 1e-5")
     log("table2_counts " + json.dumps(counts))
+    reference = json.loads(REFERENCE_COUNTS.read_text())
+    for alg in PAPER_ALGORITHMS:
+        for route, res in (("kernel", res_k), ("plain", res_p)):
+            against_reference(f"{alg} ({route} route)",
+                              res[alg]["per_tile_count"].tolist(),
+                              {mode: reference["tile512"][mode][alg]
+                               for mode in ("fma", "no_fma")})
     del res_k2, res_p
+
+    phase_done("3 (main path)")
 
     # ---- 3a. the scale-space kernel's own path: SIFT at tile 256 ------------
     # the reference's launch/extract.py defaults (tile 256, halo 24, K 256):
@@ -721,18 +847,47 @@ def main() -> int:
     log(f"  launches {launches256}; two runs bitwise identical; sift count "
         f"{int(res256['total_count'])}; first run {t256_first:.3f} s, "
         f"median of {REPS} {t256:.4f} s")
+    whole_run = res256["per_tile_count"].tolist()
     del res256, res256b
-    # kernel route = plain route on the first QUARTER tiles (the plain
-    # route holds a 26-neighbour stack of the whole batch)
-    sub = [engine.extract_features_multi(
-        tiles256[:QUARTER], headers256[:QUARTER], ("sift",), cfg256,
-        use_kernels=use, device=dev)["sift"] for use in (True, False)]
-    n_sub = same_routes("sift (tile 256)", *sub,
+    # both routes on all tiles, QUARTER at a time (the plain route holds a
+    # 26-neighbour stack of its whole batch); where a chunk's per-tile
+    # counts agree across the routes, so must its keypoints
+    t0 = time.perf_counter()
+    per_route = {True: [], False: []}
+    split, same_chunks = [], 0
+    # chunks of QUARTER tiles, the last one taking the remainder (a chunk
+    # of fewer than 4 tiles would cut the global top-K shorter)
+    bounds = list(range(0, tiles256.shape[0] - QUARTER, QUARTER))
+    for i, j in zip(bounds, bounds[1:] + [tiles256.shape[0]]):
+        sub = {use: engine.extract_features_multi(
+            tiles256[i:j], headers256[i:j], ("sift",),
+            cfg256, use_kernels=use, device=dev)["sift"]
+            for use in (True, False)}
+        c = {use: r["per_tile_count"].tolist() for use, r in sub.items()}
+        for use in (True, False):
+            per_route[use] += c[use]
+        split += [(i + k, a, b) for k, (a, b) in
+                  enumerate(zip(c[True], c[False])) if a != b]
+        if c[True] == c[False]:
+            same_routes("sift (tile 256)", sub[True], sub[False],
                         cfg256.max_keypoints_per_tile)
-    log(f"  first {QUARTER} tiles: kernel route = plain route (counts, "
-        f"keypoints, valid flags equal; scores and descriptors within "
-        f"1e-5); sift count {n_sub}")
-    del sub
+            same_chunks += 1
+    require(per_route[True] == whole_run, "tile-256 sift: the chunked kernel "
+            "route's per-tile counts differ from the whole run's")
+    log(f"  all {len(whole_run)} tiles, {QUARTER} at a time "
+        f"({time.perf_counter() - t0:.1f} s): {len(split)} tile(s) where "
+        f"the kernel and plain routes' counts differ "
+        f"(tile, kernel, plain): {split}; keypoints, valid flags, scores and "
+        f"descriptors of the {same_chunks} chunk(s) with equal counts equal")
+    for use, key in ((True, "use_pallas=True"), (False, "use_pallas=False")):
+        against_reference(f"sift tile 256 ({'kernel' if use else 'plain'} "
+                          f"route vs the reference's {key})",
+                          per_route[use],
+                          {mode: reference["tile256"][mode][key]
+                           for mode in ("fma", "no_fma")})
+    del sub, per_route
+
+    phase_done("3a (tile-256 SIFT)")
 
     # ---- 3b. the matching path ----------------------------------------------
     # two overlapping crops of the paper's size from one wide scene; scene
@@ -832,6 +987,8 @@ def main() -> int:
         f"(first call {t_register_first:.3f} s)")
     del feats, reg_k, reg_p, pair_bundles
 
+    phase_done("3b (matching and stitch)")
+
     # ---- 4. timings ---------------------------------------------------------
     log("timings (median of %d, CUDA events around one call; [device time "
         "per call under torch.profiler]):" % REPS)
@@ -865,10 +1022,58 @@ def main() -> int:
               lambda: ref.harris(x, shi_tomasi=True),
               harris_work(n, h, w, r_h, True), f"shi_tomasi [{n},{h},{w}]", 1)]
     rows["harris"] = dict(harris_rows[0])
-    rows["fast"] = timed(
-        lambda: ops.fast_score(x, threshold=cfg.fast_threshold),
-        lambda: ref.fast_score(x, threshold=cfg.fast_threshold),
-        fast_work(n, h, w, cfg.fast_arc), f"fast [{n},{h},{w}]", 1)
+    # FAST on the path's input and threshold (its row), at the stitch's
+    # threshold and on noise; each bound counts the full test only on the
+    # pixels that pass the compass pre-test on that input
+    arc = cfg.fast_arc
+    fast_rows = []
+    for img, t, tag in ((x, cfg.fast_threshold, "tiles (the path's)"),
+                        (x, STITCH_FAST_THRESHOLD, "tiles"),
+                        (noise, cfg.fast_threshold, "uniform noise")):
+        survivors = compass_survivors(torch, img, t, arc)
+        nonzero = int((ref.fast_score(img, threshold=t, arc=arc) != 0).sum())
+        row = timed(lambda img=img, t=t: ops.fast_score(img, threshold=t,
+                                                        arc=arc),
+                    lambda img=img, t=t: ref.fast_score(img, threshold=t,
+                                                        arc=arc),
+                    fast_work(n, h, w, arc, survivors),
+                    f"fast [{n},{h},{w}] t={t:g} {tag}",
+                    launches["fast"] if not fast_rows else 0)
+        row["survivors"] = survivors / img.numel()
+        log(f"    {100 * row['survivors']:.4f}% of the pixels pass the "
+            f"compass pre-test (torch ops on the card), "
+            f"{100 * nonzero / img.numel():.4f}% score nonzero")
+        fast_rows.append(row)
+    rows["fast"] = fast_rows[0]
+    # what the early-out buys: the same kernel told m = 0, so that every
+    # pixel runs the full test (its C entry accepts any m <= arc // 4)
+    from repro_torch.kernels import fastscore as FS
+
+    def full_test_only(img, t):
+        out = torch.empty_like(img)
+        FS.KERNEL.launch(dev, img.data_ptr(), out.data_ptr(), *img.shape,
+                         f32(t), arc, 0)
+        return out
+
+    for img, tag in ((x, "tiles"), (noise, "uniform noise")):
+        t = cfg.fast_threshold
+        require(torch.equal(full_test_only(img, t),
+                            ref.fast_score(img, threshold=t, arc=arc)),
+                f"fast with m = 0 on {tag} is not bitwise equal to its twin")
+        ms = cuda_ms(lambda img=img: full_test_only(img, t))
+        dms = device_us_per_call(torch, lambda img=img: full_test_only(img, t),
+                                 10) / 1e3
+        log(f"  fast [{n},{h},{w}] t={t:g} {tag}, no early-out (m = 0, "
+            f"bitwise equal to the twin): kernel {ms:.4f} ms [{dms:.4f}]")
+    pre_ops, full_ops = fast_ops(arc)
+    log(f"  fast issue floors [{n},{h},{w}] at {FP32_ISSUES_PER_S:.4g} "
+        f"instructions/s: the full test on every output "
+        f"{n * h * w * (2 + full_ops) / FP32_ISSUES_PER_S * 1e3:.4f} ms "
+        f"({2 + full_ops} an output at arc {arc}), the compass pre-test "
+        f"alone {n * h * w * pre_ops / FP32_ISSUES_PER_S * 1e3:.4f} ms "
+        f"({pre_ops} an output); bytes "
+        f"{n * h * w * 8 / HBM_BYTES_PER_S * 1e3:.4f} ms")
+    del noise
     # every blur the tile-512 path launches: SIFT's base, octave 0's five
     # increments, BRIEF's and ORB's descriptor blur (one each), SURF's
     # patches; the F.conv2d yardstick at sigma 1.6 (11 x 11, fp32)
@@ -1069,6 +1274,8 @@ def main() -> int:
     else:
         log("profile: the profiler recorded no device time; the busy share "
             "is not measured")
+
+    phase_done("4 (timings)")
 
     # ---- 5. results ---------------------------------------------------------
     # launches: from the run of the path each kernel is on (scalespace: the

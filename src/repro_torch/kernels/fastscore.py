@@ -17,8 +17,16 @@ from repro_torch.kernels.build import CudaKernel, check_image
 KERNEL = CudaKernel("fastscore", "difet_fast", [
     ctypes.c_void_p, ctypes.c_void_p,               # x, out
     ctypes.c_longlong, ctypes.c_int, ctypes.c_int,  # n, h, w
-    ctypes.c_float, ctypes.c_int,                   # threshold, arc
+    ctypes.c_float, ctypes.c_int, ctypes.c_int,     # threshold, arc, m
 ])
+
+
+def compass_run(arc: int) -> int:
+    """m = floor(arc / 4): every circular run of >= ``arc`` ring pixels
+    holds >= m consecutive compass points (ring indices 0, 4, 8, 12), so a
+    pixel whose compass points hold no run of m brighter or m darker ones
+    is no corner.  The kernel skips the full test on those pixels."""
+    return arc // 4
 
 
 def fast_score(x: torch.Tensor, *, threshold: float = 0.15,
@@ -32,5 +40,5 @@ def fast_score(x: torch.Tensor, *, threshold: float = 0.15,
     out = torch.empty_like(x)
     n, h, w = x.shape
     KERNEL.launch(x.device, x.data_ptr(), out.data_ptr(), n, h, w,
-                  f32(threshold), arc)
+                  f32(threshold), arc, compass_run(arc))
     return out

@@ -8,6 +8,8 @@ Thresholded masks must be identical.  The kernels themselves build and run
 only on a CUDA card; ``chip_smoke.py`` holds them against these twins there.
 """
 import os
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -16,7 +18,7 @@ import torch
 from repro.data.landsat import synthetic_scene
 from repro.kernels import ops as jops
 from repro_torch.core.pyramid import gaussian_kernel_1d, octave_increments
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import fastscore, ops, ref
 from repro_torch.kernels.build import check_image
 
 if os.environ.get("PYTEST_XDIST_WORKER"):
@@ -68,13 +70,58 @@ def test_blur_twin_matches_pallas(hw, sigma):
     close(got, jops.gaussian_blur(img, sigma), 1e-5, 1e-6)
 
 
-@pytest.mark.parametrize("hw", SHAPES)
+@pytest.mark.parametrize("hw", SHAPES + [(3, 3)])
 @pytest.mark.parametrize("threshold", [0.05, 0.15])
-def test_fast_twin_matches_pallas(hw, threshold):
+@pytest.mark.parametrize("arc", [5, 9, 12])
+def test_fast_twin_matches_pallas(hw, threshold, arc):
+    """rtol 1e-5 / atol 1e-6 (tests/test_kernels.py's FAST tolerance) and
+    equal corner masks; 3^2 is smaller than the pad of 3, so the
+    reflection bounces."""
     img = scenes(*hw)
-    got = ops.fast_score(torch.from_numpy(img), threshold=threshold)
-    want = jops.fast_score(img, threshold=threshold)
+    got = ops.fast_score(torch.from_numpy(img), threshold=threshold, arc=arc)
+    want = jops.fast_score(img, threshold=threshold, arc=arc)
     close(got, want, 1e-5, 1e-6, thr=0.0)
+
+
+def _circular_run(masks, bits, length):
+    """True where the circular ``bits``-bit masks hold a run of >= length
+    set bits (everywhere for length 0)."""
+    d = masks | (masks << bits)
+    run = d.copy()
+    for j in range(1, length):
+        run &= d >> j
+    return (run & ((1 << bits) - 1)) != 0 if length else np.ones_like(
+        masks, bool)
+
+
+@pytest.mark.parametrize("arc", range(1, 17))
+def test_fast_compass_early_out_never_zeroes_a_corner(arc):
+    """Every one of the 65,536 ring flag masks with a circular run of
+    >= arc flags has >= compass_run(arc) consecutive compass flags (ring
+    indices 0, 4, 8, 12), so the kernel's pre-test keeps every corner.  And
+    the rule is the tightest: below arc 16, some corner's compass flags
+    hold no run of compass_run(arc) + 1."""
+    m = fastscore.compass_run(arc)
+    masks = np.arange(1 << 16, dtype=np.uint64)
+    compass = sum(((masks >> (4 * j)) & 1) << j for j in range(4))
+    corner = _circular_run(masks, 16, arc)
+    assert corner.any()
+    assert _circular_run(compass, 4, m)[corner].all()
+    if arc < 16:
+        assert not _circular_run(compass, 4, m + 1)[corner].all()
+
+
+def test_fast_kernel_ring_is_fast_offsets():
+    """csrc/fastscore.cu packs the ring's (dy + 3, dx + 3) one hex digit a
+    ring index; they must be FAST_OFFSETS in ring order."""
+    from repro_torch.core.detectors import FAST_OFFSETS
+    src = (Path(fastscore.__file__).parent / "csrc" / "fastscore.cu") \
+        .read_text()
+    packed = [int(re.search(rf"{name} = 0x([0-9a-f]{{16}})ull", src)
+                  .group(1), 16) for name in ("kRingDY", "kRingDX")]
+    ring = [tuple(((p >> (4 * k)) & 15) - 3 for p in packed)
+            for k in range(16)]
+    assert ring == [tuple(o) for o in FAST_OFFSETS]
 
 
 @pytest.mark.parametrize("hw", SS_SHAPES + [(10, 10)])
