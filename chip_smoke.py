@@ -65,17 +65,26 @@ Run from the root of a checkout, with no arguments: ``python3 chip_smoke.py``.
    scene and for a quarter of it (its first 64 tiles).
 5. The matching path (``core/matching.py``, ``launch/stitch.py``): holds
    the matcher kernel (one launch for both of the reference's matcher
-   kernels) against its plain twin at the scene pair's shapes (2048 x 2048,
-   Hamming W 8, L2 D 128 and 64, 20% invalid rows), an odd shape, an
-   all-invalid database, two single-segment shapes (no merge launch), a
-   1,048,576-row Hamming stream and a 262,144 x 128 L2 stream (sampled
-   queries against the blocked oracle); then, with the counters at 0,
-   extracts sift/surf/brief/orb from two overlapping 7681 x 7831 crops of
-   one scene at a known offset, registers each pair through the kernels and
-   the plain route (equal matches, offsets within 1e-3, orb within 1 px),
-   and runs the 4-scene stitch and its resume; times the matcher beside its
-   twin, the ``torch_full`` path and its bound, and each of the path's
-   matcher launches on the inputs it was given.
+   kernels) against its plain twin: the scene pair's shapes (2048 x 2048,
+   Hamming W 8, L2 D 128 and 64, 20% invalid rows and SURF-like 80%),
+   duplicate rows across the segments' window edges and across neighbouring
+   threads' rows, valid rows that all come first (a top-K list), an
+   all-equal database (idx must be the first valid row), integer-valued L2
+   (exact sums: bitwise), views one element into their buffers (4-byte
+   staging), an odd shape, all-invalid databases, nk = 0 and nk below one
+   chunk, W = 1, 5 and 16, D = 1, 65 and 128, query tiles that fill the card
+   (one segment, no merge), a 1,048,576-row Hamming stream and a 262,144 x
+   128 L2 stream (sampled queries against the blocked oracle); two calls on
+   two streams in flight at once; and, under ``torch.profiler``, exactly one
+   device kernel per call plus one memset where there are segments.  Then,
+   with the counters at 0, extracts sift/surf/brief/orb from two
+   overlapping 7681 x 7831 crops of one scene at a known offset, registers
+   each pair through the kernels and the plain route (equal matches,
+   offsets within 1e-3, orb within 1 px), and runs the 4-scene stitch and
+   its resume; times the matcher beside its twin, the ``torch_full`` path
+   and its bound (by events, on the card under the profiler, and the host
+   microseconds of a call), and each of the path's matcher launches on the
+   inputs it was given, by events and on the card.
 6. Prints the kernels JSON line (with ``launch_weighted_ms`` and
    ``launch_weighted_bound_ms`` per kernel: the sum over the kernel's
    launches on its path of each one's measured time and its bound), the
@@ -347,12 +356,14 @@ def check_matcher(torch, np, dev):
     from repro_torch.kernels import matcher as M
     from repro_torch.kernels import ref
     rng = np.random.RandomState(1)
-    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    index = torch.cuda.current_device()
 
-    def make(metric, n, width):
+    def make(metric, n, width, integer=False):
         if metric == "hamming":
             a = rng.randint(0, 2 ** 32, (n, width), dtype=np.uint64) \
                 .astype(np.uint32).view(np.int32)
+        elif integer:                  # every sum exact: ties are exact too
+            a = rng.randint(-3, 4, (n, width)).astype(np.float32)
         else:
             a = rng.randn(n, width).astype(np.float32)
         return torch.from_numpy(a).to(dev)
@@ -360,9 +371,12 @@ def check_matcher(torch, np, dev):
     def valid(n, frac):
         return torch.from_numpy((rng.rand(n) >= frac).astype(np.int32)).to(dev)
 
-    def hold(tag, metric, got, want, name):
+    def plan(metric, nq, nk, width):
+        return M.plan(nq, nk, M.slots(index, metric, width))
+
+    def hold(tag, metric, got, want, name, bitwise=False):
         torch.cuda.synchronize()
-        if metric == "hamming":
+        if metric == "hamming" or bitwise:
             same = all(torch.equal(a, b) for a, b in zip(got, want))
             require(same, f"{tag}: {name} is not bitwise equal to its twin")
             return 0.0, 0
@@ -380,39 +394,133 @@ def check_matcher(torch, np, dev):
 
     log("matcher kernel vs its plain twin best2_scan on the card (Hamming "
         "bitwise, L2 rtol 1e-5 atol 1e-4 with idx equal where best and second "
-        "are apart):")
+        "are apart, integer-valued L2 bitwise):")
+    for metric, width in (("hamming", 8), ("hamming", 16), ("l2", 64),
+                          ("l2", 128)):
+        log(f"  {metric} width {width}: {M.slots(index, metric, width)} "
+            f"blocks at once on the card")
     err = 0.0
-    one_seg = M.BLOCKS_PER_SM * n_sm * M.QBLOCK   # query tiles fill the card
-    cases = [("hamming", 8, 2048, 2048, 0.2), ("l2", 128, 2048, 2048, 0.2),
-             ("l2", 64, 2048, 2048, 0.2), ("hamming", 8, 300, 1000, 0.2),
-             ("l2", 128, 300, 1000, 0.2), ("hamming", 8, 64, 500, 1.0),
-             ("l2", 64, 64, 500, 1.0), ("hamming", 8, 300, 50, 0.2),
-             ("hamming", 8, one_seg, 300, 0.2), ("l2", 128, one_seg, 300, 0.2)]
-    for metric, width, nq, nk, frac in cases:
-        q, db, v = make(metric, nq, width), make(metric, nk, width), \
-            valid(nk, frac)
-        if frac < 1.0:                          # a duplicate row: a tie
-            db[nk // 2] = db[nk // 3]
-        n_seg = M.segments(nq, nk, n_sm)[1]
-        tag = f"{metric} W/D {width} {nq}x{nk} invalid {frac:.0%}"
+    # query tiles that fill the card: one segment, no merge
+    fill_h = M.slots(index, "hamming", 8) * M.QBLOCK
+    fill_l = M.slots(index, "l2", 128) * M.QBLOCK
+    # (metric, width, queries, rows, invalid share, data): "ties" duplicates
+    # rows across the segments' window edges and across neighbouring threads'
+    # rows, "first" makes the first 413 rows the valid ones (SURF's top-K
+    # list on the matching path), "equal" makes every row the same, "int"
+    # integer-valued L2 (exact sums, ties exact), "view" a view one element
+    # into its buffer (4-byte staging)
+    cases = [("hamming", 8, 2048, 2048, 0.2, "ties"),
+             ("l2", 128, 2048, 2048, 0.2, "ties"),
+             ("l2", 64, 2048, 2048, 0.2, "ties"),
+             ("l2", 64, 2048, 2048, 0.8, "ties"),      # SURF-like, 20% valid
+             ("hamming", 8, 2048, 2048, 0.8, "ties"),
+             ("l2", 64, 2048, 2048, 0.0, "first"),      # a top-K list
+             ("hamming", 8, 2048, 2048, 0.0, "first"),
+             ("l2", 128, 2048, 2048, 0.2, "int"),
+             ("l2", 64, 2048, 2048, 0.8, "int"),
+             ("hamming", 8, 2048, 2048, 0.2, "equal"),
+             ("l2", 128, 2048, 2048, 0.2, "equal"),
+             ("hamming", 8, 1000, 3000, 0.2, "view"),
+             ("l2", 128, 1000, 3000, 0.2, "view"),
+             ("hamming", 8, 300, 1000, 0.2, "ties"),
+             ("l2", 128, 300, 1000, 0.2, "ties"),
+             ("hamming", 8, 64, 3000, 1.0, "ties"),     # all invalid
+             ("l2", 64, 64, 3000, 1.0, "ties"),
+             ("hamming", 8, 300, 50, 0.2, "ties"),      # less than a chunk
+             ("l2", 128, 300, 50, 0.2, "ties"),
+             ("hamming", 8, 300, 0, 0.0, "ties"),       # no rows at all
+             ("l2", 64, 300, 0, 0.0, "ties"),
+             ("hamming", 1, 500, 3000, 0.2, "ties"),
+             ("hamming", 16, 500, 3000, 0.2, "ties"),
+             ("hamming", 5, 500, 3000, 0.2, "ties"),
+             ("l2", 1, 500, 3000, 0.2, "int"),
+             ("l2", 65, 500, 3000, 0.2, "ties"),
+             ("l2", 65, 500, 3000, 0.2, "int"),
+             ("l2", 128, 500, 3000, 0.2, "int"),
+             ("hamming", 8, fill_h, 300, 0.2, "ties"),
+             ("l2", 128, fill_l, 300, 0.2, "ties")]
+    singles = 0
+    for metric, width, nq, nk, frac, data in cases:
+        q = make(metric, nq, width, data == "int")
+        db = make(metric, nk, width, data == "int")
+        v = valid(nk, frac)
+        if data == "first":
+            v = (torch.arange(nk, device=dev) < 413).to(torch.int32)
+        n_seg = plan(metric, nq, nk, width)
+        if data == "ties" and nk > 1:
+            for c in range(M.WINDOW, nk, M.WINDOW):      # across the segments
+                db[c] = db[c - 1]
+            db[1::7] = db[0::7][:db[1::7].shape[0]]      # neighbouring rows
+        if data == "equal":
+            db[:] = db[nk // 3]
+        if data == "view":
+            buf_q = torch.empty(q.numel() + 1, dtype=q.dtype, device=dev)
+            buf_d = torch.empty(db.numel() + 1, dtype=db.dtype, device=dev)
+            q = buf_q[1:].view(q.shape).copy_(q)
+            db = buf_d[1:].view(db.shape).copy_(db)
+            require(q.data_ptr() % 16 == 4 and db.data_ptr() % 16 == 4,
+                    "the views must be 4 bytes off 16")
+        singles += n_seg == 1
+        tag = (f"{metric} W/D {width} {nq}x{nk} invalid {frac:.0%} {data}")
         r = M.match(q, db, v, metric=metric)
         e1, n1 = hold(tag, metric, r, M.best2_scan(q, db, v, metric=metric),
-                      "kernel")
-        if frac == 1.0:
+                      "kernel", bitwise=data == "int")
+        if frac == 1.0 or nk == 0:
             big = M.big_for(metric)
             require(bool((r[0] == big).all() & (r[1] == big).all()
                          & (r[2] == 0).all()),
                     f"{tag}: an all-invalid database must give BIG, BIG, 0")
-        if metric == "hamming" and nq * nk <= 2048 * 2048:
+        if data == "equal":
+            first = int(torch.nonzero(v)[0])
+            require(bool((r[2] == first).all() & (r[0] == r[1]).all()),
+                    f"{tag}: an all-equal database must give the first valid "
+                    f"row {first} and second == best")
+        if metric == "hamming" and 0 < nq * nk <= 2048 * 2048:
             o = ref.match_best2(q, db, v, metric=metric)
             require(all(torch.equal(a, b) for a, b in zip(r, o)),
                     f"{tag}: kernel differs from the unpacked-bit oracle")
         err = max(err, e1)
-        log(f"  {tag:44s} {n_seg:4d} segment(s); equal to the twin; "
+        log(f"  {tag:52s} {n_seg:4d} segment(s); equal to the twin; "
             f"max|err| {e1:.3g}; idx differing at near-ties {n1}")
-    require(M.segments(one_seg, 300, n_sm)[1] == 1
-            and M.segments(300, 50, n_sm)[1] == 1,
-            "the single-segment form was not exercised")
+    require(singles >= 4, "the single-segment form was not exercised")
+
+    # two calls on two streams in flight at once: no shared state
+    q, db = make("hamming", 2048, 8), make("hamming", 1 << 16, 8)
+    v = valid(1 << 16, 0.2)
+    want = M.best2_scan(q, db, v, metric="hamming")
+    streams = (torch.cuda.Stream(), torch.cuda.Stream())
+    torch.cuda.synchronize()
+    for _ in range(10):
+        outs = []
+        for st in streams:
+            with torch.cuda.stream(st):
+                outs.append(M.match(q, db, v, metric="hamming"))
+        torch.cuda.synchronize()
+        for o in outs:
+            hold("two streams", "hamming", o, want, "kernel")
+    log(f"  two streams, 10 rounds of two concurrent calls at 2048x65536x8 "
+        f"({plan('hamming', 2048, 1 << 16, 8)} segments): every triple "
+        f"equal to the twin")
+
+    # one device kernel per call, and at most one memset
+    for metric, width, nq, nk in (("hamming", 8, 2048, 2048),
+                                  ("l2", 128, 2048, 2048),
+                                  ("hamming", 8, fill_h, 300)):
+        q, db, v = make(metric, nq, width), make(metric, nk, width), \
+            valid(nk, 0.2)
+        n_seg = plan(metric, nq, nk, width)
+        dev_ev = {k: c for k, (c, _) in device_events(
+            torch, lambda: M.match(q, db, v, metric=metric), 10).items()}
+        kernels = sum(c for k, c in dev_ev.items() if "match_kernel" in k)
+        memsets = sum(c for k, c in dev_ev.items()
+                      if k.lower().startswith("memset"))
+        require(kernels == 10 and sum(dev_ev.values()) == kernels + memsets
+                and memsets == (10 if n_seg > 1 else 0),
+                f"{metric} {nq}x{nk}: 10 calls ran {dev_ev} on the card, "
+                f"not one kernel each and one memset each with segments")
+        log(f"  profiler, 10 calls of {metric} {nq}x{nk}x{width} ({n_seg} "
+            f"segments): {kernels} kernels, {memsets} memsets, nothing else")
+
     streams = [("hamming", 8, 2048, 1 << 20, 0.05),
                ("l2", 128, 2048, 1 << 18, 0.05)]
     for metric, width, nq, nk, frac in streams:
@@ -428,26 +536,54 @@ def check_matcher(torch, np, dev):
         e3, _ = hold(tag, metric, tuple(x[sample] for x in st), o,
                      "kernel (64 sampled queries vs the blocked oracle)")
         err = max(err, e1, e3)
-        log(f"  {tag:44s} {M.segments(nq, nk, n_sm)[1]:4d} segments; equal "
-            f"to the twin and to the blocked oracle on 64 sampled queries; "
-            f"max|err| {max(e1, e3):.3g} ({time.perf_counter() - t0:.1f} s)")
+        log(f"  {tag:52s} {plan(metric, nq, nk, width):4d} segments; "
+            f"equal to the twin and to the blocked oracle on 64 sampled "
+            f"queries; max|err| {max(e1, e3):.3g} "
+            f"({time.perf_counter() - t0:.1f} s)")
     return err
+
+
+def host_us_per_call(torch, fn, n=200):
+    """Median host microseconds of one call of ``fn``: the time until it
+    returns, with the card's work only queued."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return statistics.median(times) * 1e6
+
+
+def device_events(torch, fn, n, tries=3):
+    """{device activity: (count, device us)} of ``n`` calls of ``fn`` under
+    ``torch.profiler``.  A session that recorded no device activity at all
+    (the profiler drops one now and then) is run again, up to ``tries``
+    times; an empty result after that means the profiler sees no card."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        out = {ev.key: (ev.count, ev.self_device_time_total)
+               for ev in prof.key_averages()
+               if ev.device_type == torch.autograd.DeviceType.CUDA}
+        if out:
+            return out
+    return {}
 
 
 def device_us_per_call(torch, fn, n):
     """Device microseconds per call of ``fn``: the CUDA kernels' own time
     under ``torch.profiler`` over ``n`` calls (the event timings include
     the wrapper's host work when it outlasts the kernels)."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    return sum(ev.self_device_time_total for ev in prof.key_averages()
-               if ev.device_type == torch.autograd.DeviceType.CUDA) / n
+    return sum(us for _, us in device_events(torch, fn, n).values()) / n
 
 
 def against_reference(tag, per_tile, modes):
@@ -1146,13 +1282,21 @@ def main() -> int:
         log(f"  {name:10s} launch-weighted over its path: kernel "
             f"{t_ms:.4f} ms, bound {b_ms:.4f} ms")
 
-    # the matcher at the scene pair's shape and on the 1M-row stream
+    # the matcher at the scene pair's shapes and on the 1M-row stream; the
+    # event floor (an empty call between the two events) sets how far a call
+    # of a few microseconds on the card can be timed by events at all
     from repro_torch.kernels import matcher as M
     mrng = np.random.RandomState(2)
     mtimes = {}
-    for metric, width, nq, nk in (("hamming", 8, 2048, 2048),
-                                  ("l2", 128, 2048, 2048),
-                                  ("hamming", 8, 2048, 1 << 20)):
+    alloc = lambda: torch.empty((3, 2048), dtype=torch.int32, device=dev)
+    log(f"  event floor: an empty call timed by events "
+        f"{cuda_ms(lambda: None) * 1e3:.1f} us; an allocation of [3, 2048] "
+        f"int32 {cuda_ms(alloc) * 1e3:.1f} us by events, "
+        f"{host_us_per_call(torch, alloc):.1f} us on the host")
+    for metric, width, nq, nk, frac in (("hamming", 8, 2048, 2048, 0.2),
+                                        ("l2", 128, 2048, 2048, 0.2),
+                                        ("l2", 64, 2048, 2048, 0.8),
+                                        ("hamming", 8, 2048, 1 << 20, 0.2)):
         if metric == "hamming":
             mk = lambda n: torch.from_numpy(mrng.randint(
                 0, 2 ** 32, (n, width), dtype=np.uint64).astype(np.uint32)
@@ -1161,7 +1305,7 @@ def main() -> int:
             mk = lambda n: torch.from_numpy(
                 mrng.randn(n, width).astype(np.float32)).to(dev)
         q, db = mk(nq), mk(nk)
-        v = torch.from_numpy((mrng.rand(nk) >= 0.2).astype(np.int32)).to(dev)
+        v = torch.from_numpy((mrng.rand(nk) >= frac).astype(np.int32)).to(dev)
         big = nk > 1 << 17
         work = match_work(nq, int(v.sum()), nk, width, metric)
         b_ms, b_by = match_bound(work, metric)
@@ -1173,25 +1317,36 @@ def main() -> int:
                                                          metric=metric),
                                     **reps),
                    bound_ms=b_ms, bound_by=b_by, torch_full_ms=full_ms)
+        extra = ""
         if not big:
             row["device_us"] = device_us_per_call(
                 torch, lambda: M.match(q, db, v, metric=metric), 20)
-        mtimes[(metric, nk)] = row
-        log(f"  matcher {metric:7s} {nq}x{nk}x{width}: kernel "
+            row["host_us"] = host_us_per_call(
+                torch, lambda: M.match(q, db, v, metric=metric))
+            row["host_us_ops"] = host_us_per_call(
+                torch, lambda: ops.match_best2(q, db, v, metric=metric,
+                                               path="cuda_stream"))
+            extra = (f"; device time per call under the profiler "
+                     f"{row['device_us']:.1f} us; host per call "
+                     f"{row['host_us']:.1f} us (match), "
+                     f"{row['host_us_ops']:.1f} us (ops.match_best2)")
+        mtimes[(metric, nk, width)] = row
+        n_seg = M.plan(nq, nk, M.slots(torch.cuda.current_device(), metric,
+                                       width))
+        log(f"  matcher {metric:7s} {nq}x{nk}x{width} ({int(v.sum())} valid "
+            f"rows; {n_seg} segments): kernel "
             f"{row['ms']:.4f} ms  twin {row['plain_ms']:.4f} ms  "
             f"torch_full "
             + ("-" if full_ms is None else f"{full_ms:.4f} ms")
             + f"  bound {b_ms:.4f} ms ({b_by}; popc at "
             f"{POPC_PER_S:.3g}/s, fp32 at {FP32_OPS_PER_S:.3g}/s, "
             f"{HBM_BYTES_PER_S:.3g} B/s)  launches on the matching path "
-            f"{match_launches['matcher']}"
-            + (f"; device time per call under the profiler "
-               f"{row['device_us']:.1f} us" if "device_us" in row else ""))
+            f"{match_launches['matcher']}" + extra)
         del q, db, v
-    rows["matcher"] = dict(mtimes[("hamming", 2048)], library_ms=None)
+    rows["matcher"] = dict(mtimes[("hamming", 2048, 8)], library_ms=None)
     # the matching path's own launches, each timed on the inputs it was given
     # (L2 for sift and surf, Hamming for brief and orb and the stitch) with
-    # its own bound from its valid rows
+    # its own bound from its valid rows, by events and under the profiler
     match_rows = {}
     for q, db, v, metric in match_calls:
         key = (metric, q.shape[0], db.shape[0], q.shape[1], int(v.sum()))
@@ -1200,18 +1355,23 @@ def main() -> int:
                                              metric), metric)
             match_rows[key] = dict(
                 ms=cuda_ms(lambda: M.match(q, db, v, metric=metric)),
+                device_ms=device_us_per_call(
+                    torch, lambda: M.match(q, db, v, metric=metric), 20) / 1e3,
                 bound_ms=b_ms, launches=0)
         match_rows[key]["launches"] += 1
     for (metric, nq, nk, width, nv), row in match_rows.items():
         log(f"  matcher on the matching path: {metric:7s} {nq}x{nk}x{width} "
-            f"({nv} valid rows) kernel {row['ms']:.4f} ms  bound "
-            f"{row['bound_ms']:.4f} ms  launches {row['launches']}")
+            f"({nv} valid rows) kernel {row['ms']:.4f} ms "
+            f"[{row['device_ms']:.4f}]  bound {row['bound_ms']:.4f} ms  "
+            f"launches {row['launches']}")
     require(sum(r["launches"] for r in match_rows.values())
             == match_launches["matcher"],
             "the timed matcher launches are not the matching path's")
     path_totals["matcher"] = weighted(list(match_rows.values()))
+    device_total = sum(r["launches"] * r["device_ms"]
+                       for r in match_rows.values())
     log(f"  {'matcher':10s} launch-weighted over its path: kernel "
-        f"{path_totals['matcher'][0]:.4f} ms, bound "
+        f"{path_totals['matcher'][0]:.4f} ms [{device_total:.4f}], bound "
         f"{path_totals['matcher'][1]:.4f} ms")
     del match_calls
 

@@ -111,9 +111,19 @@ class CudaKernel:
         return fn, err
 
     def launch(self, device: torch.device, *args) -> None:
+        """Calls the entry point on PyTorch's current stream of ``device``,
+        switching devices only when ``device`` is not the current one.  The
+        stream's handle comes from ``torch._C._cuda_getCurrentRawStream``,
+        the call PyTorch's own generated kernels use: ``current_stream()``
+        builds a Stream object each time, several microseconds a call."""
         fn, err = self._fn
-        with torch.cuda.device(device):
-            rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+        index = torch.cuda.current_device() if device.index is None \
+            else device.index
+        if index == torch.cuda.current_device():
+            rc = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+        else:
+            with torch.cuda.device(index):
+                rc = fn(*args, torch._C._cuda_getCurrentRawStream(index))
         if rc != 0:
             raise RuntimeError(f"{self.symbol}: CUDA error {rc} "
                                f"({err(rc).decode()})")

@@ -2,11 +2,15 @@
 distance over a masked database and the index of the best.
 
 Port of ``repro/kernels/matcher.py``.  One CUDA kernel (``csrc/matcher.cu``)
-replaces both its Pallas kernels, ``match_kernel`` and ``stream_kernel``:
-``match`` cuts the queries into ``QBLOCK`` tiles and the database into
-segments, enough (tile, segment) blocks to fill the card.  A single segment
-scans the whole database per tile (the resident form); with more, a second
-small launch merges the segments' partial triples in database order.
+replaces both its Pallas kernels, ``match_kernel`` and ``stream_kernel``,
+with one launch per call: ``match`` cuts the queries into ``QBLOCK`` tiles
+and the database into the ``plan``'s segments, enough (tile, segment)
+blocks for one wave on the card: segment g of n holds the ``WINDOW``-row
+windows g, g + n, g + 2 n, ..., so that a database whose valid rows come
+first (a top-K list) still spreads its work over every segment.  Each block
+compacts its segment's valid rows in order and scans them in chunks; with
+several segments the last block of a query tile to finish merges the
+tile's partial triples.
 
 On a CUDA tensor ``match`` launches the kernel; on a CPU tensor it runs its
 plain twin ``best2_scan``.  ``best2_full`` and ``best2_stream`` are the plain
@@ -16,23 +20,26 @@ Distances: Hamming over bit-packed words (int32 in the port, the
 reference's uint32 layout) is XOR plus popcount, exact int32; L2 ranks on
 ``|k|^2 - 2 q.k`` and adds ``|q|^2`` once at the end.  Masked rows are BIG
 (``1 << 30``, or ``+inf`` for L2).  Ties go to the smallest database index:
-first-occurrence argmin inside a chunk and a strictly-less merge across
-chunks in database order, so every path gives the same (best, second, idx).
+the twins take the first-occurrence argmin inside a chunk and merge chunks
+in database order with a strictly-less rule (``_merge_best2``); the kernel
+merges its threads and segments in any order with the lexicographic rule on
+(distance, index) (``merge_best2``), which gives the same triple.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
-from repro_torch.kernels.build import CudaKernel
+from repro_torch.kernels.build import CudaKernel, load
 from repro_torch.kernels.ref import BIG_HAMMING, best2_rows
 
-QBLOCK = 128              # queries per block (csrc/matcher.cu QT)
-SEGMENT_ALIGN = 64        # segments are whole kernel chunks (CH)
-MAX_WORDS = 16            # Hamming words the kernel holds per query
-MAX_DIM = 128             # L2 dimensions the kernel holds per query
-BLOCKS_PER_SM = 8         # aim for this many blocks per SM
+QBLOCK = 128              # queries per block (csrc/matcher.cu BQ)
+WINDOW = 64               # rows per window dealt to the segments (WIN)
+MIN_SEGMENT_ROWS = 256    # rows per segment, where the database has them
+MAX_WORDS = 16            # Hamming words the kernel takes per descriptor
+MAX_DIM = 128             # L2 dimensions the kernel takes per descriptor
 
 
 def kchunk_for(metric: str) -> int:
@@ -95,6 +102,22 @@ def _merge_best2(carry, chunk):
     best, second, bidx = carry
     cb, cs, ci = chunk
     take = cb < best
+    second = torch.where(take, torch.minimum(best, cs),
+                         torch.minimum(second, cb))
+    bidx = torch.where(take, ci, bidx)
+    best = torch.where(take, cb, best)
+    return best, second, bidx
+
+
+def merge_best2(a, b):
+    """Merge two triples over disjoint sets of rows, in either order: the
+    lexicographic rule on (distance, index) of the kernel's merge across
+    threads and segments.  ``take`` also breaks a tied distance toward the
+    smaller index, so the result is the in-order ``_merge_best2``'s for
+    any partition of the database."""
+    best, second, bidx = a
+    cb, cs, ci = b
+    take = (cb < best) | ((cb == best) & (ci < bidx))
     second = torch.where(take, torch.minimum(best, cs),
                          torch.minimum(second, cb))
     bidx = torch.where(take, ci, bidx)
@@ -173,10 +196,34 @@ KERNEL = CudaKernel("matcher", "difet_match", [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,       # q, db, valid
     ctypes.c_int, ctypes.c_int, ctypes.c_int,                # nq, nk, width
     ctypes.c_int,                                            # metric (1 = l2)
-    ctypes.c_void_p,                                         # |k|^2 scratch
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,       # best, second, idx
-    ctypes.c_int, ctypes.c_int,                              # seg_rows, n_seg
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])      # partials
+    ctypes.c_void_p,                                         # out [3, nq]
+    ctypes.c_int,                                            # segments
+    ctypes.c_void_p])                                        # scratch
+
+
+def check_shapes(q, db, db_valid, metric, name):
+    """What every route to the kernel needs beyond dtypes and contiguity:
+    [Q, D] queries and [K, D] rows of one width (1..``MAX_WORDS`` words or
+    1..``MAX_DIM`` dimensions on the card), ``db_valid`` [K], all on one
+    CPU or CUDA device."""
+    if q.ndim != 2 or db.ndim != 2 or q.shape[1] != db.shape[1]:
+        raise ValueError(f"{name}: needs [Q, D] and [K, D], got "
+                         f"{tuple(q.shape)} and {tuple(db.shape)}")
+    if db_valid.shape != (db.shape[0],):
+        raise ValueError(f"{name}: db_valid must be int32 [K]")
+    if q.shape[0] >= 2 ** 31 or db.shape[0] >= 2 ** 31 - 1024:
+        raise ValueError(f"{name}: 2^31 rows or more")
+    dev = q.get_device()
+    if db.get_device() != dev or db_valid.get_device() != dev:
+        raise ValueError(f"{name}: inputs on different devices")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: runs on cpu or cuda, not {q.device}")
+    width = q.shape[1]
+    limit = MAX_WORDS if metric == "hamming" else MAX_DIM
+    if dev >= 0 and not 1 <= width <= limit:
+        raise ValueError(f"{name}: the kernel takes 1..{limit} "
+                         f"{'words' if metric == 'hamming' else 'dims'}, "
+                         f"got {width}")
 
 
 def check_match_inputs(q, db, db_valid, metric, name):
@@ -188,65 +235,76 @@ def check_match_inputs(q, db, db_valid, metric, name):
     if q.dtype != want or db.dtype != want:
         raise TypeError(f"{name}: {metric} needs {want} queries and database, "
                         f"got {q.dtype} and {db.dtype}")
-    if q.ndim != 2 or db.ndim != 2 or q.shape[1] != db.shape[1]:
-        raise ValueError(f"{name}: needs [Q, D] and [K, D], got "
-                         f"{tuple(q.shape)} and {tuple(db.shape)}")
-    if db_valid.dtype != torch.int32 or db_valid.shape != (db.shape[0],):
+    if db_valid.dtype != torch.int32:
         raise ValueError(f"{name}: db_valid must be int32 [K]")
     if not (q.is_contiguous() and db.is_contiguous()
             and db_valid.is_contiguous()):
         raise ValueError(f"{name}: needs contiguous tensors")
-    if len({q.device, db.device, db_valid.device}) != 1:
-        raise ValueError(f"{name}: inputs on different devices")
-    if q.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{name}: runs on cpu or cuda, not {q.device}")
-    width = q.shape[1]
-    limit = MAX_WORDS if metric == "hamming" else MAX_DIM
-    if q.device.type == "cuda" and not 1 <= width <= limit:
-        raise ValueError(f"{name}: the kernel takes 1..{limit} "
-                         f"{'words' if metric == 'hamming' else 'dims'}, "
-                         f"got {width}")
+    check_shapes(q, db, db_valid, metric, name)
 
 
-def _outputs(nq, metric, device):
-    dt = dist_dtype(metric)
-    return (torch.empty(nq, dtype=dt, device=device),
-            torch.empty(nq, dtype=dt, device=device),
-            torch.empty(nq, dtype=torch.int32, device=device))
+def plan(nq: int, nk: int, slots: int) -> int:
+    """Segments of one launch over ``nq`` queries and ``nk`` rows, where
+    ``slots`` blocks of the metric's kernel fit on the card at once.
+
+    The (query tile, segment) blocks make at most one wave; every segment
+    gets ``MIN_SEGMENT_ROWS // WINDOW`` windows or more (several chunks),
+    so that blocks live long; once the query tiles alone fill half the card
+    or more this is a single segment, whose blocks write the final triples
+    with no merge."""
+    tiles = -(-nq // QBLOCK)
+    return max(1, min(slots // max(tiles, 1), nk // MIN_SEGMENT_ROWS))
 
 
-def segments(nq: int, nk: int, n_sm: int):
-    """(rows per segment, segments) of one launch: enough (query tile,
-    segment) blocks for ``BLOCKS_PER_SM`` per SM, each segment a whole
-    number of kernel chunks.  Once the query tiles alone fill the card this
-    is a single segment, and the launch needs no merge."""
-    q_tiles = max(1, -(-nq // QBLOCK))
-    want = max(1, -(-BLOCKS_PER_SM * n_sm // q_tiles))
-    rows = max(SEGMENT_ALIGN, -(-nk // want))
-    rows = -(-rows // SEGMENT_ALIGN) * SEGMENT_ALIGN
-    return rows, max(1, -(-nk // rows))
+@functools.lru_cache(maxsize=None)
+def slots(index: int, metric: str, width: int) -> int:
+    """Blocks of the kernel for ``metric`` at ``width`` that CUDA device
+    ``index`` holds at once: its SM count times the blocks an SM holds
+    (the kernel's own occupancy at its shared memory and registers)."""
+    fn = load(KERNEL.source).difet_match_blocks_per_sm
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    per_sm = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        rc = fn(int(metric == "l2"), width, ctypes.byref(per_sm))
+    if rc != 0 or per_sm.value < 1:
+        raise RuntimeError(f"difet_match_blocks_per_sm: CUDA error {rc}, "
+                           f"{per_sm.value} blocks per SM")
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    return sms * per_sm.value
+
+
+def launch(q, db, db_valid, *, metric: str):
+    """The kernel on inputs that ``check_match_inputs`` accepts (CPU tensors:
+    its twin ``best2_scan``): one launch, one output allocation, and with
+    several segments one scratch allocation and one memset of its tickets.
+    -> (best [Q], second [Q], idx [Q] int32), views of one [3, Q] tensor."""
+    if not q.is_cuda:
+        return best2_scan(q, db, db_valid, metric=metric)
+    nq, width = q.shape
+    nk = db.shape[0]
+    dev = q.device
+    out = torch.empty((3, nq), dtype=torch.int32, device=dev)
+    if nq:
+        n_seg = plan(nq, nk, slots(dev.index, metric, width))
+        scratch = 0
+        if n_seg > 1:
+            part = torch.empty(-(-nq // QBLOCK) + 3 * n_seg * nq,
+                               dtype=torch.int32, device=dev)
+            scratch = part.data_ptr()
+        KERNEL.launch(dev, q.data_ptr(), db.data_ptr(), db_valid.data_ptr(),
+                      nq, nk, width, int(metric == "l2"), out.data_ptr(),
+                      n_seg, scratch)
+    best, second, idx = out
+    if metric == "l2":
+        return best.view(torch.float32), second.view(torch.float32), idx
+    return best, second, idx
 
 
 def match(q, db, db_valid, *, metric: str):
-    """The matcher kernel: queries in ``QBLOCK`` tiles, the database in
-    ``segments``, the partial triples merged in database order.
+    """The matcher kernel, inputs checked: queries in ``QBLOCK`` tiles, the
+    database in the segments of ``plan``, each block's valid rows compacted
+    in order and merged lexicographically on (distance, index).
     -> (best [Q], second [Q], idx [Q] int32)."""
     check_match_inputs(q, db, db_valid, metric, "match")
-    if q.device.type == "cpu":
-        return best2_scan(q, db, db_valid, metric=metric)
-    nq, nk = q.shape[0], db.shape[0]
-    if nq >= 2 ** 31 or nk >= 2 ** 31:
-        raise ValueError("match: 2^31 rows or more")
-    out = _outputs(nq, metric, q.device)
-    if nq == 0:
-        return out
-    n_sm = torch.cuda.get_device_properties(q.device).multi_processor_count
-    seg_rows, n_seg = segments(nq, nk, n_sm)
-    parts = _outputs(n_seg * nq if n_seg > 1 else 0, metric, q.device)
-    dn = torch.empty(nk if metric == "l2" else 0, dtype=torch.float32,
-                     device=q.device)
-    KERNEL.launch(q.device, q.data_ptr(), db.data_ptr(), db_valid.data_ptr(),
-                  nq, nk, q.shape[1], int(metric == "l2"), dn.data_ptr(),
-                  *(o.data_ptr() for o in out), seg_rows, n_seg,
-                  *(p.data_ptr() for p in parts))
-    return out
+    return launch(q, db, db_valid, metric=metric)

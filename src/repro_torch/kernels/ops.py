@@ -107,7 +107,7 @@ def reference_fuses_octave(h: int, w: int, scales_per_octave: int,
 # VMEM budget (matcher_fits_vmem).  Both pick a path, not a result, so
 # neither is copied (unlike the octave-fusion rule above, which decides
 # which maps the reference computes).  Here the card always runs the kernel,
-# which sizes its own launch (``matcher.segments``), and the plain route is
+# which sizes its own launch (``matcher.plan``), and the plain route is
 # taken only when asked for.
 MATCH_QBLOCK = _matcher.QBLOCK
 FULL_MAX_ROWS = 1 << 17          # torch_full's [Q, K] block up to this K
@@ -132,11 +132,13 @@ def match_path(nk: int, *, use_kernels: bool = None,
     return "torch_full" if nk <= FULL_MAX_ROWS else "torch_stream"
 
 
+# ``match_best2`` makes the dtypes and contiguity that ``matcher.match``
+# checks, so its CUDA paths go straight to the launch
 _PATH_FNS = {
     "torch_full": _matcher.best2_full,
     "torch_stream": _matcher.best2_stream,
-    "cuda_resident": _matcher.match,
-    "cuda_stream": _matcher.match,
+    "cuda_resident": _matcher.launch,
+    "cuda_stream": _matcher.launch,
 }
 
 
@@ -168,11 +170,15 @@ def match_best2(queries: torch.Tensor, db: torch.Tensor,
     nk = db.shape[0]
     if db_valid is None:
         db_valid = torch.ones(nk, dtype=torch.int32, device=db.device)
-    db_valid = db_valid.to(device=db.device, dtype=torch.int32).contiguous()
+    elif (db_valid.dtype != torch.int32
+          or db_valid.get_device() != db.get_device()):
+        db_valid = db_valid.to(device=db.device, dtype=torch.int32)
+    db_valid = db_valid.contiguous()
     if path is None:
         path = match_path(nk, use_kernels=use_kernels,
                           backend=queries.device.type)
     elif path not in MATCH_PATHS:
         raise ValueError(f"unknown path {path!r} (want one of {MATCH_PATHS})")
-    return _PATH_FNS[path](queries.contiguous(), db.contiguous(), db_valid,
-                           metric=metric)
+    queries, db = queries.contiguous(), db.contiguous()
+    _matcher.check_shapes(queries, db, db_valid, metric, "match_best2")
+    return _PATH_FNS[path](queries, db, db_valid, metric=metric)

@@ -184,29 +184,260 @@ def test_candidate_paths_by_backend():
                                     "cuda_resident", "cuda_stream"}
     # both of the reference's kernels map onto the one launch
     assert ops._PATH_FNS["cuda_resident"] is ops._PATH_FNS["cuda_stream"] \
-        is matcher.match
+        is matcher.launch
 
 
-@pytest.mark.parametrize("nq,nk", [(2048, 2048), (300, 1000), (64, 50),
-                                   (2048, 1 << 20), (8 * 132 * 128, 300),
-                                   (5, 0)])
-def test_segments_cover_the_database_and_fill_the_card(nq, nk):
-    """The launch's segments are whole kernel chunks that cover the
-    database once; the grid reaches BLOCKS_PER_SM blocks per SM wherever
-    the database has rows enough, and is one segment (no merge) once the
-    query tiles alone fill the card."""
-    n_sm = 132
-    rows, n_seg = matcher.segments(nq, nk, n_sm)
-    assert rows % matcher.SEGMENT_ALIGN == 0 and n_seg >= 1
-    assert rows * n_seg >= nk and rows * (n_seg - 1) < max(nk, 1)
+def segment_rows(nk, n_seg, g):
+    """The database rows of segment ``g`` of ``n_seg`` in the order its
+    block visits them (csrc/matcher.cu): the WINDOW-row windows g,
+    g + n_seg, g + 2 n_seg, ... ."""
+    win = torch.arange(g, -(-nk // matcher.WINDOW), n_seg)
+    rows = (win[:, None] * matcher.WINDOW
+            + torch.arange(matcher.WINDOW)).reshape(-1)
+    return rows[rows < nk]
+
+
+# (nq, nk, slots): the scene pair's 2048^2 and the 1M-row stream with one
+# block an SM (L2) and two or three (Hamming) on 132 SMs, an odd shape, a
+# database smaller than a window, query tiles that fill the card, an empty
+# database, and the 262,144-row L2 stream
+PLAN_CASES = [(2048, 2048, 132), (2048, 2048, 264), (300, 1000, 264),
+              (300, 1000, 132), (64, 50, 132), (2048, 1 << 20, 264),
+              (2048, 1 << 20, 396), (8 * 132 * 128, 300, 264), (5, 0, 132),
+              (2048, 1 << 18, 132)]
+
+
+@pytest.mark.parametrize("nq,nk,slots", PLAN_CASES,
+                         ids=[f"{a}x{b}-{c}" for a, b, c in PLAN_CASES])
+def test_plan_covers_the_database_in_whole_windows_and_fills_the_card(
+        nq, nk, slots):
+    """The launch plan's segments, interleaved WINDOW-row windows, cover the
+    database once, each in increasing row order; its blocks make at most
+    one wave, nearly a full one where the database has rows enough, and a
+    single segment (no merge) once the query tiles alone fill the card;
+    every block gets MIN_SEGMENT_ROWS // WINDOW windows or more (several
+    chunks) where the database has them, the scene pair's 2048^2 and the
+    streams among them; valid rows that all come first (a top-K list)
+    still reach every segment they can fill."""
+    n_seg = matcher.plan(nq, nk, slots)
+    assert n_seg >= 1
+    segs = [segment_rows(nk, n_seg, g) for g in range(n_seg)]
+    rows = torch.cat(segs)
+    assert torch.equal(torch.sort(rows).values, torch.arange(nk))
+    win = matcher.WINDOW
+    for seg in segs:
+        assert bool((seg[1:] > seg[:-1]).all())
+        starts = seg[seg % win == 0]               # whole windows
+        assert len(seg) == sum(min(win, nk - int(r)) for r in starts)
     tiles = -(-nq // matcher.QBLOCK)
-    want = matcher.BLOCKS_PER_SM * n_sm
-    if tiles >= want:
+    assert tiles * n_seg <= max(slots, tiles)
+    if tiles >= slots:
         assert n_seg == 1
-    elif nk >= want * matcher.SEGMENT_ALIGN:
-        assert tiles * n_seg >= want
-    if nk <= matcher.SEGMENT_ALIGN:
+    if nk >= matcher.MIN_SEGMENT_ROWS:
+        per = matcher.MIN_SEGMENT_ROWS // win
+        assert all(-(-len(seg) // win) >= per for seg in segs)
+    else:
         assert n_seg == 1
+    if nk >= slots // tiles * matcher.MIN_SEGMENT_ROWS:
+        assert tiles * (n_seg + 1) > slots
+    if nq == 2048 and nk >= 2048:
+        assert tiles * n_seg >= 128
+        front = 413                                # SURF's valid rows
+        reached = sum(bool((seg < front).any()) for seg in segs)
+        assert reached == min(n_seg, -(-front // win))
+
+
+# --- the kernel's schedule as plain code: compaction, threads, segments ------
+NTR = 16                            # csrc/matcher.cu: threads along a chunk
+CHUNK = {"hamming": 64, "l2": 128}  # csrc/matcher.cu Cfg::BR: rows a chunk
+
+
+def compact_model(flags):
+    """``csrc/matcher.cu::compact`` on one step of 1024 flags: flag
+    k * 256 + warp * 32 + lane is thread (warp, lane)'s k-th; a ballot per
+    (k, warp), an exclusive scan over the 32 ballots' popcounts in (k, warp)
+    order, and a lane's rank among the set bits below it.  -> the rows in
+    the ring's order."""
+    f = flags.reshape(4, 8, 32)
+    counts = f.sum(axis=2).reshape(32)
+    offset = (np.cumsum(counts) - counts).reshape(4, 8)
+    rank = np.cumsum(f, axis=2) - f
+    ring = np.full(int(counts.sum()), -1)
+    for k, w, lane in zip(*np.nonzero(f)):
+        ring[offset[k, w] + rank[k, w, lane]] = k * 256 + w * 32 + lane
+    return ring
+
+
+def kernel_model(d, v, segments, rng, chunk):
+    """(best, second, idx) of a distance matrix ``d`` [Q, K] (masking not
+    applied) scheduled as the kernel does: each of ``segments`` (its rows in
+    visiting order) has its valid rows compacted in order
+    (``compact_model``, 1024 flags a step) and cut into chunks, thread t of
+    NTR taking rows t, t + NTR, ... of every chunk in order (first-occurrence
+    argmin = the strictly-less push); the threads' triples merged by
+    ``merge_best2`` in a random butterfly, the segments' in a random order."""
+    big = (matcher.BIG_HAMMING if d.dtype == torch.int32
+           else float("inf"))
+    nq = d.shape[0]
+    segs = []
+    for seg in segments:
+        seg = np.asarray(seg, np.int64)
+        rows = []
+        for s0 in range(0, len(seg), 1024):
+            f = np.zeros(1024, bool)
+            part = seg[s0:s0 + 1024]
+            f[:len(part)] = v[part]
+            rows += [part[r] for r in compact_model(f)]
+        rows = np.asarray(rows, np.int64)
+        parts = []
+        for t in range(NTR):
+            mine = np.concatenate([rows[c + t:c + chunk:NTR]
+                                   for c in range(0, len(rows), chunk)]
+                                  + [np.zeros(0, np.int64)])
+            part = matcher._init(nq, "hamming" if big == matcher.BIG_HAMMING
+                                 else "l2", d.device)
+            if len(mine):
+                b, s, a = matcher._chunk_best2(d[:, mine], 0, big)
+                part = (b, s, torch.from_numpy(mine)[a.long()].to(torch.int32))
+            parts.append(part)
+        rng.shuffle(parts)
+        while len(parts) > 1:                     # a butterfly, pair by pair
+            parts = [matcher.merge_best2(parts[i], parts[i + 1])
+                     if i + 1 < len(parts) else parts[i]
+                     for i in range(0, len(parts), 2)]
+        segs.append(parts[0])
+    order = rng.permutation(len(segs))
+    out = segs[order[0]]
+    for i in order[1:]:
+        out = matcher.merge_best2(out, segs[i])
+    return out
+
+
+def _distances(q, db, metric):
+    """The full [Q, K] matrix of distances the twins rank on (L2 without
+    |q|^2), masking not applied."""
+    if metric == "hamming":
+        return matcher.popcount32(q[:, None, :] ^ db[None, :, :]) \
+            .sum(dim=-1).to(torch.int32)
+    return (db * db).sum(dim=-1)[None, :] - 2.0 * (q @ db.T)
+
+
+MERGE_CASES = [(m, c, p) for m in ("hamming", "l2")
+               for c in ("random", "ties at the cuts", "all equal",
+                         "all invalid", "one valid row", "sparse",
+                         "valid rows first")
+               for p in ("cuts", "windows")]
+
+
+@pytest.mark.parametrize("metric,case,partition", MERGE_CASES,
+                         ids=[f"{m}-{c.replace(' ', '_')}-{p}"
+                              for m, c, p in MERGE_CASES])
+def test_merge_in_any_order_over_any_partition_is_the_reference(
+        metric, case, partition):
+    """The kernel's schedule (in-order compaction of each segment's valid
+    rows, strided thread subsets, ``merge_best2`` across threads and
+    segments in random order), over seeded random contiguous segments or
+    the kernel's interleaved windows (``segment_rows``) for a random
+    segment count, gives the triple of ``best2_full`` on the same
+    distances, and equals ``best2_scan`` and the JAX ``ops.match_best2``
+    (Hamming bitwise; L2 on integer-valued descriptors, whose sums are
+    exact, bitwise too).  Duplicate rows straddle the segment cuts, the
+    window edges and the threads' strides."""
+    rng = np.random.RandomState(MERGE_CASES.index((metric, case, partition)))
+    nq, nk, width = 37, 2500, 8 if metric == "hamming" else 64
+    if metric == "hamming":
+        q = rng.randint(0, 2 ** 32, (nq, width), dtype=np.uint64) \
+            .astype(np.uint32)
+        db = rng.randint(0, 2 ** 32, (nk, width), dtype=np.uint64) \
+            .astype(np.uint32)
+        db[:, 1:] = q[0, 1:]                      # distances of a few bits
+    else:
+        q = rng.randint(-3, 4, (nq, width)).astype(np.float32)
+        db = rng.randint(-3, 4, (nk, width)).astype(np.float32)
+    v = rng.rand(nk) < 0.8
+    cuts = np.unique(np.concatenate(
+        [[0, nk], rng.choice(np.arange(1, nk), 6, replace=False)]))
+    if partition == "cuts":
+        segments = [np.arange(a, b) for a, b in zip(cuts[:-1], cuts[1:])]
+    else:
+        cuts = np.arange(0, nk + 1, matcher.WINDOW)
+        n_seg = int(rng.randint(1, nk // matcher.MIN_SEGMENT_ROWS + 1))
+        segments = [segment_rows(nk, n_seg, g).numpy()
+                    for g in range(n_seg)]
+    if case == "ties at the cuts":
+        for c in cuts[1:-1]:
+            db[c] = db[c - 1]                     # one row each side of a cut
+        db[1::NTR] = db[::NTR][:len(db[1::NTR])]  # neighbours in two threads
+    elif case == "all equal":
+        db[:] = db[5]
+    elif case == "all invalid":
+        v[:] = False
+    elif case == "one valid row":
+        v[:] = False
+        v[1717] = True
+    elif case == "sparse":                       # ~20% valid, scattered
+        v = rng.rand(nk) < 0.2
+    elif case == "valid rows first":             # a top-K list, as SURF's
+        v = np.arange(nk) < 413
+    tq, tdb, tv = to_torch(q, db, v)
+    vi = tv.to(torch.int32)
+    big = matcher.big_for(metric)
+    d = _distances(tq, tdb, metric)
+    got = kernel_model(torch.where(vi[None, :] != 0, d,
+                                   torch.full_like(d, big)), v, segments, rng,
+                       CHUNK[metric])
+    if metric == "l2":
+        got = matcher._l2_qnorm(tq, *got[:2]) + (got[2],)
+    for a, b in zip(got, matcher.best2_full(tq, tdb, vi, metric=metric)):
+        assert torch.equal(a, b)
+    want = jops.match_best2(jnp.asarray(q), jnp.asarray(db), jnp.asarray(v),
+                            metric=metric, path="jnp_full")
+    for ref_triple in (matcher.best2_scan(tq, tdb, vi, metric=metric),
+                       [torch.from_numpy(np.array(w).view(np.int32)
+                                         if metric == "hamming"
+                                         else np.array(w)) for w in want]):
+        for a, b in zip(got, ref_triple):
+            assert torch.equal(a, b)
+    if case == "all equal":
+        assert (got[2] == int(np.argmax(v))).all()
+        assert torch.equal(got[0], got[1])
+    if case == "all invalid":
+        assert (got[0] == big).all() and (got[1] == big).all()
+        assert (got[2] == 0).all()
+    if case == "one valid row":
+        assert (got[2] == 1717).all() and (got[1] == big).all()
+
+
+def test_merge_rule_equals_in_order_merge_on_random_triples():
+    """On any two triples over disjoint rows, the lexicographic merge in
+    either order equals the reference's strictly-less merge taken in
+    database order, ties and duplicate distances included."""
+    rng = np.random.RandomState(5)
+    n = 20000
+    d = torch.from_numpy(rng.randint(0, 6, (n, 4)).astype(np.int32))
+    i = torch.from_numpy(np.sort(rng.choice(1000, (n, 4)), axis=1)
+                         .astype(np.int32))
+    # rows 0-1 belong to the earlier part, rows 2-3 to the later one
+    first = (torch.minimum(d[:, 0], d[:, 1]),
+             torch.where(d[:, 0] <= d[:, 1], d[:, 1], d[:, 0]),
+             torch.where(d[:, 0] <= d[:, 1], i[:, 0], i[:, 1]))
+    later = (torch.minimum(d[:, 2], d[:, 3]),
+             torch.where(d[:, 2] <= d[:, 3], d[:, 3], d[:, 2]),
+             torch.where(d[:, 2] <= d[:, 3], i[:, 2], i[:, 3]))
+    want = matcher._merge_best2(first, later)
+    for got in (matcher.merge_best2(first, later),
+                matcher.merge_best2(later, first)):
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("frac", [0.0, 0.05, 0.2, 0.8, 1.0])
+def test_compaction_keeps_database_order(frac):
+    """``compact_model`` (the kernel's ballot, popcount and scan offsets)
+    puts the valid rows of a step in increasing order, so the strictly-less
+    push still meets each query's rows in database order."""
+    flags = np.random.RandomState(int(frac * 100)).rand(1024) < frac
+    np.testing.assert_array_equal(compact_model(flags), np.nonzero(flags)[0])
 
 
 def test_match_best2_rejects_bad_input():
@@ -227,6 +458,15 @@ def test_match_best2_rejects_bad_input():
     with pytest.raises(ValueError, match="contiguous"):
         matcher.match(q.T.contiguous().T, db,
                                torch.ones(8, dtype=torch.int32), metric="l2")
+    # shapes are checked on every route, the launch's included
+    for path in ops.MATCH_PATHS:
+        with pytest.raises(ValueError, match="db_valid"):
+            ops.match_best2(q, db, torch.ones(7, dtype=torch.int32),
+                            metric="l2", path=path)
+        with pytest.raises(ValueError, match=r"\[K, D\]"):
+            ops.match_best2(q, torch.zeros(8, 5), metric="l2", path=path)
+    with pytest.raises(ValueError, match="db_valid"):
+        matcher.match(q, db, torch.ones(8), metric="l2")
 
 
 # --- RANSAC with the reference's draws -----------------------------------------
