@@ -85,7 +85,26 @@ Run from the root of a checkout, with no arguments: ``python3 chip_smoke.py``.
    and its bound (by events, on the card under the profiler, and the host
    microseconds of a call), and each of the path's matcher launches on the
    inputs it was given, by events and on the card.
-6. Prints the kernels JSON line (with ``launch_weighted_ms`` and
+6. Phase 3c, the paper's own experiment on the streaming ingest
+   (``data/pipeline.py``, ``launch/scale.py``, ``launch/extract.py``):
+   writes the paper scene as one float32 gray band under ``build/``,
+   streams it at ``DifetConfig()`` in 4 batches of 64 tiles (bitwise equal
+   to ``tile_scene``'s tiles and headers), runs all seven algorithms
+   through ``Prefetcher(device_put=True)`` with the counters at 0 (harris,
+   fast and blur must launch; per-tile counts equal to phase 3's and to
+   the reference file's), times ingest alone, extraction alone (batches
+   on the card), the serial loop, the pipelined loop, the prefetcher's
+   thread alone and the prefetcher over batches packed in advance (host
+   clock, median of 3) with the overlap, and requires under the profiler
+   that the staged copies are "Pinned -> Device" on a stream the engine's
+   kernels do not use; runs ``run_scaling`` on 3 RGBA band scenes of the
+   paper's size (12 batches of 64, workers 1, 2 and 4, harris, fast and
+   sift: parity at every worker count, counts above 0); runs
+   ``launch/extract.py --stream`` on 3 scenes of 2048^2 at tile 256 with
+   ``--fail-after 1`` (exit 2), resumes it (the scale-space kernel must
+   launch), builds a plain-route store and holds the two bundle by bundle
+   (bundles bitwise, results as phase 3 holds its routes).
+7. Prints the kernels JSON line (with ``launch_weighted_ms`` and
    ``launch_weighted_bound_ms`` per kernel: the sum over the kernel's
    launches on its path of each one's measured time and its bound), the
    card's name and power
@@ -96,6 +115,7 @@ non-zero and prints no result.
 """
 from __future__ import annotations
 
+import collections
 import json
 import re
 import statistics
@@ -138,6 +158,13 @@ STITCH_FAST_THRESHOLD = 0.08   # launch/stitch.py's FAST threshold
 STITCH_ARGS = ["--scenes", "4", "--scene-size", "2048", "--overlap", "512",
                "--tile", "512", "--max-keypoints", "512", "--algorithm",
                "orb"]
+BATCH_TILES = 64           # tiles a streamed batch (80.3 MB at tile 512)
+SWEEP_ALGORITHMS = ("harris", "fast", "sift")   # launch/scale.py's default
+SWEEP_WORKERS = (1, 2, 4)
+DRIVER_ALGORITHMS = ("harris", "shi_tomasi", "sift", "surf", "fast", "brief",
+                     "orb")
+DRIVER_ARGS = ["--stream", "--scenes", "3", "--scene-size", "2048",
+               "--algorithms", ",".join(DRIVER_ALGORITHMS)]
 
 
 def ptxas_entries(text):
@@ -586,6 +613,25 @@ def device_us_per_call(torch, fn, n):
     return sum(us for _, us in device_events(torch, fn, n).values()) / n
 
 
+def device_activity(torch, fn, tries=3):
+    """[(name, stream)] of every device activity (kernels, copies) of one
+    ``fn()`` under ``torch.profiler``; the stream is the profiler's id of
+    the CUDA stream it ran on.  A session that recorded nothing is run
+    again, up to ``tries`` times."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        out = [(ev.name, ev.device_resource_id) for ev in prof.events()
+               if ev.device_type == torch.autograd.DeviceType.CUDA]
+        if out:
+            return out
+    return []
+
+
 def against_reference(tag, per_tile, modes):
     """The port's per-tile counts against the reference's: equal on every
     tile to its run without FMA ("no_fma", one rounding per operation, as
@@ -948,6 +994,8 @@ def main() -> int:
                               res[alg]["per_tile_count"].tolist(),
                               {mode: reference["tile512"][mode][alg]
                                for mode in ("fma", "no_fma")})
+    scene_counts = {alg: res_k[alg]["per_tile_count"].tolist()
+                    for alg in PAPER_ALGORITHMS}
     del res_k2, res_p
 
     phase_done("3 (main path)")
@@ -1124,6 +1172,239 @@ def main() -> int:
     del feats, reg_k, reg_p, pair_bundles
 
     phase_done("3b (matching and stitch)")
+
+    # ---- 3c. streamed ingest, the Table-1 sweep, the extraction driver -----
+    from repro_torch.core.bundle import BundleStore, TileBundle
+    from repro_torch.data import pipeline
+    from repro_torch.data.landsat import BandSceneReader, write_scene_bands
+    from repro_torch.launch import extract as extract_cli
+    from repro_torch.launch import scale
+
+    # 1. the paper scene as one float32 gray band on disk, streamed at
+    # DifetConfig() in batches of BATCH_TILES tiles
+    ingest_dir = ROOT / "build" / "chip_smoke_ingest"
+    shutil.rmtree(ingest_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    reader = BandSceneReader(write_scene_bands(ingest_dir, "paper", scene))
+    log(f"streamed ingest: the paper scene {reader.shape} written as one "
+        f"float32 gray band in {time.perf_counter() - t0:.2f} s; batches of "
+        f"{BATCH_TILES} tiles at tile {cfg.tile}, halo {cfg.halo}")
+
+    def batches():
+        return pipeline.iter_tile_batches([reader], cfg, BATCH_TILES,
+                                          alloc=pipeline.pinned_empty)
+
+    streamed = list(batches())
+    require([i for i, _ in streamed] == list(range(4)),
+            f"the paper scene must stream as 4 batches of {BATCH_TILES}")
+    require(np.array_equal(np.concatenate([b.tiles for _, b in streamed]),
+                           bundle.tiles)
+            and np.array_equal(np.concatenate([b.headers
+                                               for _, b in streamed]),
+                               bundle.headers),
+            "the streamed tiles and headers differ from tile_scene's")
+    log(f"  {len(streamed)} batches of {tuple(streamed[0][1].tiles.shape)} "
+        f"({streamed[0][1].tiles.nbytes / 1e6:.1f} MB each): tiles and "
+        f"headers bitwise equal to tile_scene's")
+
+    # 2. all seven algorithms through the prefetcher, kernel route
+    def extract(b):
+        return engine.extract_features_multi(b.tiles, b.headers,
+                                             PAPER_ALGORITHMS, cfg,
+                                             device=dev)
+
+    def pipelined():
+        with pipeline.Prefetcher(batches(), depth=2, device_put=True,
+                                 device=dev) as pf:
+            return {idx: extract(b) for idx, b in pf}
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    out = pipelined()
+    torch.cuda.synchronize()
+    launches_3c = ops.launch_counts()
+    for name in MAIN_KERNELS:
+        require(launches_3c[name] >= 1,
+                f"kernel {name} was not launched on the streamed path")
+    require(launches_3c["scalespace"] == 0,
+            "the scale-space kernel ran on the streamed tile-512 path")
+    for alg in PAPER_ALGORITHMS:
+        per_tile = sum((out[i][alg]["per_tile_count"].tolist()
+                        for i in sorted(out)), [])
+        require(per_tile == scene_counts[alg],
+                f"{alg}: streamed per-tile counts differ from phase 3's")
+        against_reference(f"{alg} (streamed, pipelined)", per_tile,
+                          {mode: reference["tile512"][mode][alg]
+                           for mode in ("fma", "no_fma")})
+    log(f"  pipelined, kernel route: launches {launches_3c}; per-tile "
+        f"counts of all seven algorithms equal phase 3's")
+    del out
+
+    def ingest_only():
+        for _ in batches():
+            pass
+
+    def to_device(b):
+        return TileBundle(torch.from_numpy(b.tiles).to(dev),
+                          torch.from_numpy(b.headers).to(dev), cfg)
+
+    staged = [to_device(b) for _, b in streamed]
+
+    def extraction_only():
+        for b in staged:
+            extract(b)
+
+    def serial():
+        for _, b in batches():
+            extract(to_device(b))
+
+    def staging_only():
+        with pipeline.Prefetcher(batches(), depth=2, device_put=True,
+                                 device=dev) as pf:
+            for _ in pf:
+                pass
+
+    def packed_in_advance():
+        with pipeline.Prefetcher(iter(streamed), depth=2, device_put=True,
+                                 device=dev) as pf:
+            for _, b in pf:
+                extract(b)
+
+    loops = {"ingest": ingest_only, "extraction": extraction_only,
+             "serial": serial, "pipelined": pipelined,
+             "staging": staging_only, "packed": packed_in_advance}
+    secs = {name: host_s(fn, 3) for name, fn in loops.items()}
+    overlap = ((secs["ingest"] + secs["extraction"] - secs["pipelined"])
+               / min(secs["ingest"], secs["extraction"]))
+    log("streamed_scene_s " + json.dumps(secs) + f" overlap {overlap:.4f}")
+    log(f"  seconds a streamed paper scene (host clock ending in a "
+        f"synchronize, median of 3): ingest alone {secs['ingest']:.4f}, "
+        f"extraction alone (batches staged in advance) "
+        f"{secs['extraction']:.4f}, serial {secs['serial']:.4f}, pipelined "
+        f"{secs['pipelined']:.4f}; overlap (ingest + extraction - "
+        f"pipelined) / min(ingest, extraction) = {overlap:.4f}; the "
+        f"prefetcher's thread alone (ingest and copies, no extraction) "
+        f"{secs['staging']:.4f}; the prefetcher over batches packed in "
+        f"advance (copies under extraction, no tiling) {secs['packed']:.4f}")
+    del staged
+    # the staged batches' copies: from pinned memory, on a stream that runs
+    # none of the engine's kernels; the engine's own copies (small, from
+    # pageable memory) stay on its stream.  The profiler may drop some of
+    # the staged copies: each of up to 3 sessions must hold the rule, and
+    # the one that recorded the most is reported
+    best = None
+    for _ in range(3):
+        acts = device_activity(torch, pipelined)
+        require(acts, "the profiler recorded no device activity")
+        kernel_streams = {st for name, st in acts
+                          if not name.startswith(("Memcpy", "Memset"))}
+        h2d = [(name, st) for name, st in acts
+               if name.startswith("Memcpy HtoD")]
+        copies = [(name, st) for name, st in h2d if st not in kernel_streams]
+        require(copies and all("Pinned -> Device" in name
+                               for name, _ in copies),
+                f"the staged copies are missing or not from pinned memory: "
+                f"{collections.Counter(copies)}")
+        require(not any("Pinned -> Device" in name for name, st in h2d
+                        if st in kernel_streams),
+                "a copy from pinned memory ran on the engine's stream")
+        if best is None or len(copies) > len(best[0]):
+            best = (copies, kernel_streams, collections.Counter(h2d))
+        if len(copies) >= 2 * len(streamed):
+            break
+    copies, kernel_streams, h2d = best
+    log(f"  under the profiler: {len(copies)} of the {2 * len(streamed)} "
+        f"staged copies recorded, all 'Pinned -> Device', on stream(s) "
+        f"{sorted({st for _, st in copies})}; the engine's kernels on "
+        f"stream(s) {sorted(kernel_streams)}; host-to-device copies by "
+        f"(kind, stream) {dict(h2d)}")
+
+    # 3. the Table-1 sweep: 3 RGBA band scenes of the paper's size, workers
+    # 1, 2 and 4 simulated on the card
+    t0 = time.perf_counter()
+    readers = scale.build_scene_set(ROOT / "build" / "chip_smoke_table1", 3,
+                                    cfg.scene_hw)
+    log(f"Table-1 sweep: {len(readers)} RGBA band scenes of "
+        f"{readers[0].shape}, written or reopened in "
+        f"{time.perf_counter() - t0:.1f} s; DifetConfig(), batches of "
+        f"{BATCH_TILES}, workers {SWEEP_WORKERS}, "
+        f"{','.join(SWEEP_ALGORITHMS)}")
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    table1 = scale.run_scaling(readers, cfg, SWEEP_ALGORITHMS, SWEEP_WORKERS,
+                               batch_tiles=BATCH_TILES, device=dev)
+    sweep_launches = ops.launch_counts()
+    scale.print_table(table1, SWEEP_WORKERS)
+    for name in MAIN_KERNELS:
+        require(sweep_launches[name] >= 1,
+                f"kernel {name} was not launched by the sweep")
+    for row in table1:
+        require(row["n_batches"] == 12, f"{row['n_batches']} batches")
+        require(row["parity"], f"{row['algorithm']}: a worker count changed "
+                f"the results")
+        require(row["total_count"] > 0, f"{row['algorithm']}: no feature")
+    log("table1 " + json.dumps(table1))
+    log(f"  parity at workers {SWEEP_WORKERS} for every algorithm; launches "
+        f"{sweep_launches}; sweep {time.perf_counter() - t0:.1f} s")
+
+    # 4. the extraction driver: killed after one bundle, resumed; a second
+    # store on the plain route
+    stores = {use: ROOT / "build" / f"chip_smoke_extract_{use}"
+              for use in ("kernels", "plain")}
+    for path in stores.values():
+        shutil.rmtree(path, ignore_errors=True)
+    kernel_args = DRIVER_ARGS + ["--store", str(stores["kernels"])]
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        extract_cli.main(kernel_args + ["--fail-after", "1"])
+    except SystemExit as e:
+        require(e.code == 2, f"--fail-after 1 exited {e.code}, not 2")
+    else:
+        require(False, "--fail-after 1 did not stop the driver")
+    t_killed = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    summary = extract_cli.main(kernel_args)
+    t_resume = time.perf_counter() - t0
+    driver_launches = ops.launch_counts()
+    require(summary["bundles_done"] == summary["bundles_total"] == 3,
+            f"the resumed driver finished {summary['bundles_done']} of "
+            f"{summary['bundles_total']} bundles")
+    require(driver_launches["scalespace"] >= 1,
+            "the scale-space kernel did not launch on the driver's path")
+    t0 = time.perf_counter()
+    plain = extract_cli.main(DRIVER_ARGS + ["--store", str(stores["plain"]),
+                                            "--no-use-kernels"])
+    t_plain = time.perf_counter() - t0
+    bk, bp = (BundleStore(stores[use]) for use in ("kernels", "plain"))
+    require(bk.list() == bp.list() and len(bk.list()) == 3,
+            "the two stores hold other bundles")
+    for name in bk.list():
+        a, b = bk.get(name), bp.get(name)
+        require(np.array_equal(a.tiles, b.tiles)
+                and np.array_equal(a.headers, b.headers),
+                f"{name}: the two stores' bundles differ")
+        for alg in DRIVER_ALGORITHMS:
+            rk, rp = ({k: torch.from_numpy(v) for k, v in
+                       st.get_result(f"{name}.{alg}").items()}
+                      for st in (bk, bp))
+            same_routes(f"{name}/{alg} (driver)", rk, rp, 256)
+    log(f"  extraction driver ({' '.join(DRIVER_ARGS)}): --fail-after 1 "
+        f"exited 2 ({t_killed:.1f} s, scenes and store included), resumed "
+        f"to {summary['bundles_done']}/{summary['bundles_total']} bundles "
+        f"({t_resume:.1f} s); launches {driver_launches}; plain-route store "
+        f"({t_plain:.1f} s): bundles bitwise equal, results equal per bundle "
+        f"and algorithm; totals "
+        + json.dumps({alg: summary["per_algorithm"][alg]["grand_total"]
+                      for alg in DRIVER_ALGORITHMS}))
+    require(all(summary["per_algorithm"][alg]["grand_total"]
+                == plain["per_algorithm"][alg]["grand_total"]
+                for alg in DRIVER_ALGORITHMS), "the driver's totals differ "
+            "across routes")
+
+    phase_done("3c (streamed ingest, Table-1 sweep, extraction driver)")
 
     # ---- 4. timings ---------------------------------------------------------
     log("timings (median of %d, CUDA events around one call; [device time "

@@ -36,6 +36,11 @@ from repro_torch.core.bundle import BundleStore, TileBundle
 from repro_torch.core.engine import extract_features_multi
 
 
+class SimulatedFailure(RuntimeError):
+    """Raised by ``run(simulate_failure_after=N)`` after N items: the
+    fault-tolerance tests' stand-in for a worker that dies."""
+
+
 @dataclasses.dataclass
 class JobManifest:
     """The on-disk job state: ordered work items + their done bitmap.
@@ -270,7 +275,8 @@ class ManifestJob:
                 progress(name)
             if simulate_failure_after is not None \
                     and processed >= simulate_failure_after:
-                raise RuntimeError(f"simulated worker failure after {name}")
+                raise SimulatedFailure(
+                    f"simulated worker failure after {name}")
         return self.summary()
 
     def summary(self) -> Dict:
