@@ -12,6 +12,9 @@ Port of ``repro/core/descriptors.py`` over a batch of tiles: ``img``
   torch has no shifts for uint32; ``np.asarray(ref_words).view(np.int32)``
   compares them with the reference.
 * With ``use_kernels`` the blurs run through the CUDA blur kernel.
+* The fixed tables (Gaussian windows, the BRIEF pattern) are copied to a
+  device once and kept (`_device_constant`), so a call makes no host copy
+  and can be captured in a CUDA graph (`serve/buckets.py::ServeGraph`).
 """
 from __future__ import annotations
 
@@ -40,11 +43,24 @@ def extract_patches(img: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
     return out.reshape(n, k, size, size)
 
 
-def _gaussian_window(size: int, sigma: float, device) -> torch.Tensor:
+@functools.lru_cache(maxsize=None)
+def _device_constant(make, args, device: torch.device,
+                     dtype: torch.dtype) -> torch.Tensor:
+    """``make(*args)`` (a numpy table) on ``device`` as ``dtype``, built
+    once per key and shared by every call; callers never write to it."""
+    return torch.from_numpy(make(*args)).to(device=device, dtype=dtype)
+
+
+def _window_table(size: int, sigma: float) -> np.ndarray:
     c = (size - 1) / 2.0
     y = np.arange(size) - c
     g = np.exp(-0.5 * (y / sigma) ** 2)
-    return torch.from_numpy(np.outer(g, g).astype(np.float32)).to(device)
+    return np.outer(g, g).astype(np.float32)
+
+
+def _gaussian_window(size: int, sigma: float, device) -> torch.Tensor:
+    return _device_constant(_window_table, (size, sigma), torch.device(device),
+                            torch.float32)
 
 
 def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
@@ -167,7 +183,8 @@ def brief_descriptors(img: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
     n, k = ys.shape
     sm = blur_separable(img, 2.0, use_kernels)
     flat = extract_patches(sm, ys, xs, patch).reshape(n * k, patch * patch)
-    pairs = torch.from_numpy(brief_pairs(n_bits, patch)).to(img.device).long()
+    pairs = _device_constant(brief_pairs, (n_bits, patch), img.device,
+                             torch.int64)
     half = patch // 2
     i1 = ((pairs[:, 0] + half) * patch + pairs[:, 1] + half)[None]
     i2 = ((pairs[:, 2] + half) * patch + pairs[:, 3] + half)[None]
@@ -197,8 +214,8 @@ def orb_descriptors(img: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
     step = 2 * np.pi / 30.0
     theta_q = torch.round(theta / step) * step
     cos, sin = torch.cos(theta_q), torch.sin(theta_q)
-    pairs = torch.from_numpy(brief_pairs(n_bits, patch)).to(
-        img.device).to(torch.float32)
+    pairs = _device_constant(brief_pairs, (n_bits, patch), img.device,
+                             torch.float32)
 
     # rotate both endpoints: (y,x) -> (x sin + y cos, x cos - y sin)
     def rot(y, x):

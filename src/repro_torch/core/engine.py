@@ -236,21 +236,65 @@ def extract_features_multi(bundle_tiles, bundle_headers, algorithms,
     return {alg: _reduce_features(per_tile[alg]) for alg in algorithms}
 
 
+def _reduce_requests(per_tile):
+    """The reduce with every batch row its own request: `_reduce_features`
+    over each row's [1, K] candidates, for all rows at once.  Each row is
+    stable-sorted on its own (invalid slots at -inf), so the result equals
+    the per-row reduce bit for bit, dtypes included."""
+    count, scores, valid = (per_tile["count"], per_tile["scores"],
+                            per_tile["valid"])
+    masked = torch.where(valid, scores,
+                         torch.full_like(scores, float("-inf")))
+    top_scores, idx = nms.stable_topk(masked, scores.shape[1])
+    finite = torch.isfinite(top_scores)
+
+    def gather(a):
+        ix = idx.reshape(idx.shape + (1,) * (a.ndim - 2))
+        return torch.gather(a, 1, ix.expand(idx.shape + a.shape[2:]))
+
+    result = {
+        # a one-element sum: the same value, promoted as ``.sum()`` does
+        "total_count": count.to(torch.int64),
+        "per_tile_count": count[:, None],
+        "top_scores": torch.where(finite, top_scores,
+                                  torch.zeros_like(top_scores)),
+        "top_ys": gather(per_tile["ys"]),
+        "top_xs": gather(per_tile["xs"]),
+        "top_valid": gather(valid) & finite,
+        "keypoint_count": valid.sum(dim=1),
+    }
+    if "desc" in per_tile:
+        result["top_desc"] = gather(per_tile["desc"])
+    return result
+
+
 def extract_request_features(bundle_tiles, bundle_headers, algorithms,
                              cfg: DifetConfig, use_kernels: bool = True,
                              device=None):
     """Serving-path extraction: every batch row is an independent request,
-    so the reduce runs per tile over its own [1, K] candidate set.
-    Arguments as `extract_features`.  Returns {algorithm: result} with a
-    leading batch dim on every entry."""
+    so the reduce runs per tile over its own [1, K] candidate set (all rows
+    at once).  Arguments as `extract_features`.  Returns {algorithm:
+    result} with a leading batch dim on every entry.  Each row's values
+    depend on that row alone, so a request's result is bit-identical
+    whatever batch it rode in."""
     algorithms = tuple(algorithms)
     per_tile = _map(bundle_tiles, bundle_headers, algorithms, cfg,
                     use_kernels, device)
-    out = {}
-    for alg in algorithms:
-        feats = per_tile[alg]
-        rows = [_reduce_features({key: v[i:i + 1] for key, v in feats.items()})
-                for i in range(feats["count"].shape[0])]
-        out[alg] = {key: torch.stack([r[key] for r in rows])
-                    for key in rows[0]}
-    return out
+    return {alg: _reduce_requests(per_tile[alg]) for alg in algorithms}
+
+
+def make_serve_step(algorithms, cfg: DifetConfig, use_kernels: bool = True,
+                    device=None):
+    """The serving step of one (shape bucket, algorithm set) pair:
+    ``step(tiles [B,H,W] f32, headers [B,6] i32) -> {alg: {key: tensor}}``
+    with the inputs already on ``device`` (the card unless
+    ``device="cpu"``).  It makes no host synchronization, so
+    `serve/buckets.py::CompileCache` captures it once per pair as a CUDA
+    graph at the scheduler's fixed batch shape and replays it."""
+    algorithms = tuple(algorithms)
+    dev = resolve_device(device)
+
+    def step(tiles: torch.Tensor, headers: torch.Tensor):
+        return extract_request_features(tiles, headers, algorithms, cfg,
+                                        use_kernels, dev)
+    return step

@@ -10,8 +10,8 @@ Port of ``repro/core/job.py``.  ``ManifestJob`` is the generic machinery
 is the extraction phase over bundles, on the port's engine; the stitching
 workload's registration phase (``core/mosaic.py::MatchPhase``) reuses the
 same machinery.  Left out for now: the mesh-sharded extraction branch
-(one card), and the reference's ``repro.obs`` counters (lease acquires and
-steals, manifest commits), which have no counterpart in the port yet.
+(one card).  Counters (``repro_torch.obs``): ``difet.job.lease_acquires``,
+``difet.job.lease_steals`` and ``difet.job.manifest_commits``.
 
 Multi-worker protocol: the manifest's item order is fixed at creation and
 never rewritten.  Workers coordinate through ``LeaseBoard``: an item is
@@ -34,6 +34,7 @@ import torch
 
 from repro_torch.core.bundle import BundleStore, TileBundle
 from repro_torch.core.engine import extract_features_multi
+from repro_torch.obs import metrics as obs_metrics
 
 
 class SimulatedFailure(RuntimeError):
@@ -127,9 +128,11 @@ class LeaseBoard:
                 if time.time() - lease.get("t", 0.0) < self.ttl_s:
                     return False                # live lease held elsewhere
             self._write(path, worker)           # stale/orphaned: steal
+            obs_metrics.registry().counter("difet.job.lease_steals").inc()
             return True
         with os.fdopen(fd, "w") as f:
             json.dump({"worker": worker, "t": time.time()}, f)
+        obs_metrics.registry().counter("difet.job.lease_acquires").inc()
         return True
 
     def release(self, item: str, worker: str) -> None:
@@ -202,6 +205,7 @@ class ManifestJob:
             f".tmp.{os.getpid()}.{threading.get_ident()}")
         tmp.write_text(manifest.to_json())
         tmp.replace(self.manifest_path)      # atomic manifest update
+        obs_metrics.registry().counter("difet.job.manifest_commits").inc()
 
     def _merge_done_from_disk(self) -> None:
         """OR the on-disk manifest's done map into memory (tolerates a

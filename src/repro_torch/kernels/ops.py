@@ -11,6 +11,8 @@ and of the queries to ``QBLOCK`` has no counterpart either.
 """
 from __future__ import annotations
 
+import time
+
 import torch
 
 from repro_torch.kernels import blur as _blur
@@ -19,6 +21,7 @@ from repro_torch.kernels import harris as _harris
 from repro_torch.kernels import matcher as _matcher
 from repro_torch.kernels import ref
 from repro_torch.kernels import scalespace as _scalespace
+from repro_torch.obs import profile as _obs_profile
 
 KERNELS = {
     "harris": _harris.KERNEL,
@@ -142,6 +145,17 @@ _PATH_FNS = {
 }
 
 
+def _pow2(n: int) -> int:
+    return 1 << max(0, (int(n) - 1).bit_length())
+
+
+def shape_bucket(nq: int, nk: int, d: int):
+    """(nq, nk) rounded up to powers of two, the width exact: the key a
+    profiled ``match_best2`` call is stamped under (a copy of the
+    reference's ``kernels/dispatch.py::shape_bucket``)."""
+    return _pow2(max(nq, 1)), _pow2(max(nk, 1)), int(d)
+
+
 def match_best2(queries: torch.Tensor, db: torch.Tensor,
                 db_valid: torch.Tensor = None, *, metric: str = "l2",
                 use_kernels: bool = None, path: str = None):
@@ -156,7 +170,12 @@ def match_best2(queries: torch.Tensor, db: torch.Tensor,
     CUDA path launches its kernel or raises; a torch path runs only when
     asked for (``use_kernels=False`` or ``path``).  Every path gives the
     same distances, masking and smallest-index ties (Hamming bit for
-    bit)."""
+    bit).
+
+    With the kernel profiler enabled (`obs/profile.py`), a call waits for
+    its result and stamps its wall time under
+    ``match:<metric>:<path>:q<Q>k<K>d<D>`` (`shape_bucket`); disabled, the
+    call makes no synchronization."""
     if metric == "hamming":
         if queries.dtype != torch.int32 or db.dtype != torch.int32:
             raise TypeError("hamming matching needs bit-packed int32 "
@@ -181,4 +200,14 @@ def match_best2(queries: torch.Tensor, db: torch.Tensor,
         raise ValueError(f"unknown path {path!r} (want one of {MATCH_PATHS})")
     queries, db = queries.contiguous(), db.contiguous()
     _matcher.check_shapes(queries, db, db_valid, metric, "match_best2")
-    return _PATH_FNS[path](queries, db, db_valid, metric=metric)
+    prof = _obs_profile.profiler()
+    if not prof.enabled:
+        return _PATH_FNS[path](queries, db, db_valid, metric=metric)
+    qb, kb, d = shape_bucket(queries.shape[0], nk, queries.shape[1])
+    t0 = time.monotonic()
+    out = _PATH_FNS[path](queries, db, db_valid, metric=metric)
+    if queries.device.type == "cuda":
+        torch.cuda.synchronize(queries.device)   # the work on the clock
+    prof.record_call(f"match:{metric}:{path}:q{qb}k{kb}d{d}",
+                     time.monotonic() - t0)
+    return out
