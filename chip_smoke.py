@@ -122,12 +122,32 @@ Run from the root of a checkout, with no arguments: ``python3 chip_smoke.py``.
    sizes 32-256, 64 scenes, the four sets) closed-loop at concurrency 16
    with the cache (the repeat pass must be fully cached) and without it
    (the device's busy share over 256 of its requests under the profiler),
-   and open-loop (Poisson) at half the uncached rate.
-8. Prints the kernels JSON line (with ``launch_weighted_ms`` and
+   and open-loop (Poisson) at half the uncached rate.  Each service
+   uploads, replays and copies back on a CUDA stream of its own.
+8. Phase 3e, the replica fleet (``serve/{router,fleet,proc,transport}.py``,
+   ``obs/{ship,agg,slo}.py``, ``launch/{fleet,obs}.py``) at ``ServeConfig()``
+   on phase 3d's trace, against an oracle ``FeatureService`` on the card
+   without cache: 2 process replicas (the telemetry plane on, a shared
+   disk tier) take the trace open-loop with a ``kill -9`` of the
+   deepest-queued worker after 256 accepted requests: the kill must be
+   found through the stale lease, served + shed = injected, every response
+   bitwise the oracle's, and each worker's ready marker must show harris,
+   fast, blur and scalespace captured into its graphs; a thread fleet of 2
+   is forced up to 3 while the trace replays (the third captures its 16
+   graphs beside live replays) and drained back to 2, with the counters
+   at 0 just before: zero dropped, every response bitwise the oracle's;
+   times closed loops without cache at concurrency 16 on 1, 2 and 4
+   process replicas (spawn-to-ready seconds and reserved memory per
+   worker, the kill to the last re-admitted response); then runs the
+   reference's gates ``launch/fleet.py --smoke``, ``--replicas 2 --proc
+   --kill-after 16 --smoke``, ``launch/obs.py --smoke`` and ``--fleet
+   --smoke`` as subprocesses at once, each of which must exit 0.
+9. Prints the kernels JSON line (with ``launch_weighted_ms`` and
    ``launch_weighted_bound_ms`` per kernel: the sum over the kernel's
    launches on its path of each one's measured time and its bound, and for
    the extraction kernels ``served_launches_per_replay`` by bucket), a
-   ``serve`` line of phase 3d's figures, the card's name and power
+   ``serve`` line of phase 3d's figures, a ``fleet`` line of phase 3e's,
+   the card's name and power
    limit, and last ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero.  Without CUDA, or outside a checkout, it exits
@@ -194,6 +214,17 @@ SERVE_SCENES = 64
 SERVE_CONCURRENCY = 16
 SERVE_OVERSIZE = 2048      # a 2048^2 crop of the paper scene: 64 tiles of 256
 SERVE_BUSY_REQUESTS = 256  # the closed loop without cache under the profiler
+# phase 3e, the replica fleet at ServeConfig(): the kill -9 (and the thread
+# fleet's scale-up) after this many accepted requests of phase 3d's trace
+FLEET_KILL_AFTER = 256
+FLEET_REPLICA_COUNTS = (1, 2, 4)     # process replicas of the closed loop
+FLEET_SMOKES = (                     # the reference's own gates
+    ("-m", "repro_torch.launch.fleet", "--smoke"),
+    ("-m", "repro_torch.launch.fleet", "--replicas", "2", "--proc",
+     "--kill-after", "16", "--smoke"),
+    ("-m", "repro_torch.launch.obs", "--smoke"),
+    ("-m", "repro_torch.launch.obs", "--fleet", "--smoke"),
+)
 # device kernel names of each wrapper's kernels (the profiler's keys)
 DEVICE_NAMES = {"harris": ("harris_kernel",), "fast": ("fast_tiled",),
                 "blur": ("blur_tiled", "blur_small"),
@@ -1058,6 +1089,320 @@ def serve_phase(torch, np, scene):
     return figures
 
 
+def same_response(want, got, what):
+    """A served response's results bitwise equal to the oracle's."""
+    import numpy as np
+    require(set(got) == set(want), f"{what}: algorithms differ")
+    for alg, res in want.items():
+        require(set(got[alg]) == set(res), f"{what}: {alg} keys differ")
+        for key, v in res.items():
+            g = got[alg][key]
+            require(v.dtype == g.dtype and v.shape == g.shape
+                    and np.array_equal(v, g),
+                    f"{what}: {alg}/{key} is not bitwise the oracle's")
+
+
+def fleet_closed(fleet, trace, pool, concurrency):
+    """Closed loop through the fleet's router: ``concurrency`` clients each
+    submit a request (routed by its scene key) and wait for it.  Returns
+    the wall and the per-request client latencies; a failed request fails
+    the run."""
+    import threading
+    from repro_torch.serve.trace import scene_key
+    latencies = [0.0] * len(trace)
+    it = iter(range(len(trace)))
+    lock = threading.Lock()
+    errors = []
+
+    def client():
+        while not errors:
+            with lock:
+                i = next(it, None)
+            if i is None:
+                return
+            ev = trace[i]
+            t0 = time.perf_counter()
+            try:
+                fleet.submit(pool[ev.pool_key], ev.algorithms,
+                             tenant=ev.tenant,
+                             scene_key=scene_key(ev)).result(120)
+            except Exception as e:  # noqa: BLE001 — raised after the join
+                errors.append(e)
+                return
+            latencies[i] = time.perf_counter() - t0
+
+    threads = [threading.Thread(target=client) for _ in range(concurrency)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    require(not errors, f"fleet closed loop: {len(errors)} request(s) "
+            f"failed, first {errors[0]!r}" if errors else "")
+    return time.perf_counter() - t0, latencies
+
+
+def fleet_phase(torch, np, single_closed):
+    """Phase 3e: the replica fleet at ``ServeConfig()`` on the card.
+    Returns the phase's figures."""
+    import dataclasses
+    import os
+    import tempfile
+    import threading
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import fleet as fleet_driver
+    from repro_torch.obs import metrics as obs_metrics
+    from repro_torch.serve import (FeatureService, Fleet, FleetConfig,
+                                   ServeConfig)
+    from repro_torch.serve.trace import TraceConfig, make_trace, tile_pool
+
+    figures = {}
+    buckets = ServeConfig().buckets
+    tcfg = TraceConfig(n_requests=SERVE_REQUESTS, seed=0,
+                       tile_sizes=tuple(buckets), unique_scenes=SERVE_SCENES,
+                       algorithm_sets=tuple(SERVE_SETS))
+    trace, pool = make_trace(tcfg), tile_pool(tcfg)
+    torch.cuda.empty_cache()
+
+    # the oracle: one replica on the card, no cache; one response for
+    # each (tile, set) of the trace
+    oracle = FeatureService(ServeConfig(cache_entries=0), name="oracle")
+    oracle.warmup(SERVE_SETS)
+    want = {}
+    for ev in trace:
+        key = (ev.pool_key, ev.algorithms)
+        if key not in want:
+            want[key] = oracle.submit(pool[ev.pool_key],
+                                      ev.algorithms).result(120).results
+    oracle.close()
+    log(f"  oracle: one FeatureService(ServeConfig(cache_entries=0)) on "
+        f"the card, {len(want)} distinct (tile, set) pairs of the "
+        f"{len(trace)}-request trace")
+
+    def check_all(label, accepted, responses):
+        for i, (ev, resp) in enumerate(zip(accepted, responses)):
+            same_response(want[(ev.pool_key, ev.algorithms)], resp.results,
+                          f"{label}, request {i}")
+
+    def spawn(n, **kw):
+        t0 = time.time()
+        fleet = Fleet(FleetConfig(initial_replicas=n, min_replicas=1,
+                                  max_replicas=max(n, 2),
+                                  warm_algorithm_sets=tuple(SERVE_SETS),
+                                  proc=True, **kw))
+        ready = {}
+        for name, rep in fleet.replicas.items():
+            info = rep.service.mailbox.read_ready()
+            marker = rep.service.root / "ready.npz"
+            info["ready_s"] = marker.stat().st_mtime - t0
+            ready[name] = info
+            require(info["device"].startswith("cuda"),
+                    f"{name} runs on {info['device']}, not the card")
+            for k in EXTRACT_KERNELS:
+                require(info["kernels_captured"].get(k, 0) >= 1,
+                        f"{name}: {k} was not captured into its graphs "
+                        f"({info['kernels_captured']})")
+        return fleet, ready, time.time() - t0
+
+    # 1. process fleet: 2 workers, telemetry on, kill -9 after 256 accepted
+    tmp = Path(tempfile.mkdtemp(prefix="difet-fleet-", dir=ROOT / "build"))
+    m0 = obs_metrics.registry().snapshot()
+    fleet, ready, t_spawn = spawn(
+        2, cache_dir=str(tmp / "cache"), lease_ttl_s=1.0, telemetry=True)
+    log(f"  process fleet (2 workers, ServeConfig(), shared disk tier, "
+        f"telemetry on) ready in {t_spawn:.2f} s; ready markers: "
+        + json.dumps({n: {k: i[k] for k in ("pid", "programs",
+                                             "kernels_captured",
+                                             "memory_reserved", "ready_s")}
+                      for n, i in ready.items()}))
+    kills = []
+    sigkill = fleet.sigkill_replica
+
+    def timed_sigkill(name):
+        kills.append(time.time())
+        return sigkill(name)
+
+    fleet.sigkill_replica = timed_sigkill
+    wall, responses, sheds, readmitted, accepted = fleet_driver.replay(
+        fleet, trace, pool, kill_after=FLEET_KILL_AFTER)
+    fleet.poll_telemetry()
+    events = fleet.telemetry.events + fleet.router.drain_events()
+    readmits = {e["rid"] for e in events if e.get("kind") == "readmit"}
+    served, shed_n = len(responses), sum(sheds.values())
+    m1 = obs_metrics.registry().snapshot()
+    stale = (m1.get("difet.fleet.stale_lease_deaths", 0)
+             - m0.get("difet.fleet.stale_lease_deaths", 0))
+    require(len(kills) == 1 and stale >= 1,
+            f"the kill -9 was not found through a stale lease ({stale})")
+    require(served + shed_n == len(trace),
+            f"{served} served + {shed_n} shed != {len(trace)} injected")
+    require(readmitted >= 1 and readmits, "no request was re-admitted")
+    check_all("process fleet", accepted, responses)
+    done = [r.timing["completed_at"] for r in responses
+            if r.request_id in readmits]
+    require(len(done) == len(readmits),
+            f"{len(readmits)} re-admitted, {len(done)} of them answered")
+    figures["kill"] = {
+        "served": served, "shed": shed_n, "readmitted": len(readmits),
+        "wall_s": wall, "kill_to_last_readmitted_s": max(done) - kills[0],
+        "stale_lease_deaths": int(stale),
+        "ready_s": {n: i["ready_s"] for n, i in ready.items()},
+        "reserved_mib": {n: i["memory_reserved"] / 2 ** 20
+                         for n, i in ready.items()}}
+    stats = fleet.stats()
+    fleet.close()
+    fleet_driver.chaos_summary(fleet, sheds)
+    log(f"  kill -9 after {FLEET_KILL_AFTER} accepted: {served} served, "
+        f"{shed_n} shed of {len(trace)}, {len(readmits)} re-admitted, the "
+        f"last re-admitted answered "
+        f"{figures['kill']['kill_to_last_readmitted_s']:.3f} s after the "
+        f"kill; every response bitwise = the oracle; routing affinity "
+        f"{stats['routed_affinity']}, spill {stats['routed_spill']}, "
+        f"cache hits {stats['total_cache_hits']}")
+
+    # 2. thread fleet: 2 replicas, forced up to 3 while a replay runs (the
+    # third captures its graphs beside the others' replays), then drained
+    # back to 2; counters at 0 just before, read just after
+    ops.reset_launch_counts()
+    fleet = Fleet(FleetConfig(
+        serve=ServeConfig(cache_entries=0), initial_replicas=2,
+        min_replicas=2, max_replicas=3, warm_algorithm_sets=tuple(SERVE_SETS),
+        slo_p99_s=1e9, scale_up_queue_per_replica=-1.0,
+        scale_down_grace_ticks=1))
+    out = {}
+
+    def run_replay():
+        try:
+            out["replay"] = fleet_driver.replay(fleet, trace, pool)
+        except Exception as e:  # noqa: BLE001 — raised after the join
+            out["error"] = e
+
+    replayer = threading.Thread(target=run_replay)
+    replayer.start()
+    while fleet.router.submitted < FLEET_KILL_AFTER and replayer.is_alive():
+        time.sleep(0.005)
+    t0 = time.perf_counter()
+    at_start = fleet.router.submitted
+    up = fleet.autoscale_tick()
+    at_end = fleet.router.submitted
+    t_up = time.perf_counter() - t0
+    replayer.join(300)
+    require(not replayer.is_alive() and "error" not in out,
+            f"thread-fleet replay failed: {out.get('error')!r}")
+    require(up.startswith("scale_up:") and at_end > at_start,
+            f"scale-up under traffic: {up}, {at_start} -> {at_end} "
+            f"submitted during it")
+    _, responses, sheds, _, accepted = out["replay"]
+    require(len(responses) == len(trace) and not sheds,
+            f"thread fleet: {len(responses)} responses, sheds {sheds}")
+    check_all("thread fleet", accepted, responses)
+    widest = max(responses, key=lambda r: len(r.algorithms))
+    per = {n: r["submitted"] for n, r in fleet.stats()["replicas"].items()}
+    down = fleet.autoscale_tick()
+    require(down.startswith("scale_down:")
+            and len(fleet.ready_replicas()) == 2,
+            f"drain back to 2: {down}, ready {fleet.ready_replicas()}")
+    launches = ops.launch_counts()
+    for k in EXTRACT_KERNELS:
+        require(launches[k] >= 1, f"thread fleet: {k} never launched")
+    fleet.close()
+    figures["scale_up_s"] = t_up
+    log(f"  thread fleet 2 -> 3 -> 2 under a {len(trace)}-request replay: "
+        f"{up} (16 graphs captured in {t_up:.2f} s while requests "
+        f"{at_start}-{at_end} came in), then {down}; zero dropped, every "
+        f"response bitwise = the oracle; requests by replica {per}; "
+        f"launch counters {launches}")
+
+    # 3. closed loop, cache off, concurrency 16, on 1, 2 and 4 workers
+    fleet, ready, t_spawn = spawn(4, serve=ServeConfig(cache_entries=0))
+    names = sorted(fleet.replicas)
+    closed = {}
+    for n in FLEET_REPLICA_COUNTS:
+        for i, name in enumerate(names):
+            fleet.router.set_accepting(name, i < n)
+        wall, lat = fleet_closed(fleet, trace, pool, SERVE_CONCURRENCY)
+        lat = np.asarray(lat)
+        closed[n] = {"req_per_s": len(trace) / wall,
+                     "p50_ms": float(np.percentile(lat, 50) * 1e3),
+                     "p99_ms": float(np.percentile(lat, 99) * 1e3),
+                     "wall_s": wall}
+    fleet.close()
+    figures["closed"] = closed
+    figures["spawn4_s"] = t_spawn
+    figures["ready4_s"] = {n: i["ready_s"] for n, i in ready.items()}
+    figures["reserved4_mib"] = {n: i["memory_reserved"] / 2 ** 20
+                                for n, i in ready.items()}
+    log(f"  4 workers ready in {t_spawn:.2f} s (each "
+        + ", ".join(f"{v:.2f}" for v in figures["ready4_s"].values())
+        + " s; reserved "
+        + ", ".join(f"{v:.1f}" for v in figures["reserved4_mib"].values())
+        + " MiB)")
+    for n, c in closed.items():
+        log(f"  closed loop, cache off, concurrency {SERVE_CONCURRENCY}, "
+            f"{n} process replica(s): {c['req_per_s']:.2f} req/s, p50 "
+            f"{c['p50_ms']:.2f} ms, p99 {c['p99_ms']:.2f} ms")
+    log(f"  (phase 3d, one in-process service: "
+        f"{single_closed['req_per_s']:.2f} req/s, p50 "
+        f"{single_closed['p50_ms']:.2f} ms, p99 "
+        f"{single_closed['p99_ms']:.2f} ms)")
+
+    # the host cost of one request on the wire, step by step (median of
+    # 50 trips in this process): the parent writes a 256 tile's request,
+    # the worker claims it and writes a response of the widest set, the
+    # parent reads and decodes it; each message one .npz in the mailbox
+    from repro_torch.serve.proc import _decode_response, _encode_response
+    from repro_torch.serve.transport import WorkerMailbox
+    probe = WorkerMailbox(tmp / "probe")
+    big = pool[next(k for k in pool if k[1] == buckets[-1])]
+    steps = {"parent_send": [], "worker_claim": [], "worker_respond": [],
+             "parent_collect": []}
+    for _ in range(50):
+        t = [time.perf_counter()]
+        probe.send_request("r", {"algorithms": list(widest.algorithms)},
+                           {"image": big})
+        t.append(time.perf_counter())
+        [(_, _, arrays)] = probe.claim_requests()
+        t.append(time.perf_counter())
+        probe.send_response("r", *_encode_response(widest))
+        t.append(time.perf_counter())
+        _decode_response(*probe.try_read_response("r"))
+        t.append(time.perf_counter())
+        (probe.resp / "r.npz").unlink()
+        for key, a, b in zip(steps, t, t[1:]):
+            steps[key].append((b - a) * 1e3)
+    n_arrays = sum(len(v) for v in widest.results.values())
+    figures["wire_ms"] = {k: statistics.median(v) for k, v in steps.items()}
+    figures["wire_ms"]["response_arrays"] = n_arrays
+    log(f"  the wire, host ms a step (median of 50; a 256 tile out, a "
+        f"{len(widest.algorithms)}-algorithm response of {n_arrays} arrays "
+        f"back): " + ", ".join(f"{k} {figures['wire_ms'][k]:.3f}"
+                               for k in steps))
+
+    # 4. the reference's own gates, as subprocesses, all at once
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = []
+    for args in FLEET_SMOKES:
+        f = open(tmp / f"smoke-{len(procs)}.log", "w+")
+        procs.append((args, f, subprocess.Popen(
+            [sys.executable, *args], cwd=ROOT, env=env, stdout=f,
+            stderr=subprocess.STDOUT)))
+    t0 = time.perf_counter()
+    for args, f, p in procs:
+        try:
+            rc = p.wait(timeout=max(1.0, 300 - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            p.kill()
+            rc = p.wait()
+        f.seek(0)
+        tail = f.read().strip().splitlines()[-3:]
+        f.close()
+        log(f"  python {' '.join(args)}: exit {rc}; " + " | ".join(tail))
+        require(rc == 0, f"{' '.join(args)} exited {rc}")
+    figures["smokes_s"] = time.perf_counter() - t0
+    return figures
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke: run from the root of a checkout (src/repro_torch "
@@ -1775,6 +2120,12 @@ def main() -> int:
     served = serve_phase(torch, np, scene)
     phase_done("3d (feature service)")
 
+    # ---- 3e. the replica fleet ---------------------------------------------
+    log("replica fleet at ServeConfig() (router, process and thread "
+        "replicas on the card, kill -9, the telemetry plane):")
+    fleet_figures = fleet_phase(torch, np, served["closed_uncached"])
+    phase_done("3e (replica fleet)")
+
     # ---- 4. timings ---------------------------------------------------------
     log("timings (median of %d, CUDA events around one call; [device time "
         "per call under torch.profiler]):" % REPS)
@@ -2111,6 +2462,7 @@ def main() -> int:
                 served["per_replay"][name]
     log("serve " + json.dumps({k: v for k, v in served.items()
                                if k != "per_replay"}))
+    log("fleet " + json.dumps(fleet_figures))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)

@@ -17,7 +17,7 @@ import torch
 from repro_torch.core.padding import reflect_pad
 from repro_torch.core.pyramid import (
     blur_separable, box_sum, downsample2, f32, fused_octave_response,
-    integral_image, sobel_gradients,
+    integral_image, sobel_gradients, sqrt_rn,
 )
 
 
@@ -53,7 +53,7 @@ def shi_tomasi_response(img: torch.Tensor, sigma: float = 1.0,
     ixx, iyy, ixy = structure_tensor(img, sigma)
     half_tr = 0.5 * (ixx + iyy)
     d = ixx - iyy
-    rad = torch.sqrt(torch.clamp_min(0.25 * (d * d) + ixy * ixy, 0.0))
+    rad = sqrt_rn(torch.clamp_min(0.25 * (d * d) + ixy * ixy, 0.0))
     return half_tr - rad
 
 

@@ -23,6 +23,13 @@ def f32(x: float) -> float:
     return float(np.float32(x))
 
 
+def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """float32 square root rounded to nearest, as ``__fsqrt_rn``, numpy
+    and XLA give it: torch's vectorized CPU ``sqrt`` is off by an ulp on
+    some inputs, and the float64 root rounds to the right float32."""
+    return torch.sqrt(x.double()).float()
+
+
 @functools.lru_cache(maxsize=64)
 def gaussian_kernel_1d(sigma: float, radius: int = 0) -> np.ndarray:
     if radius == 0:

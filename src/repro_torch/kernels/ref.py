@@ -26,6 +26,7 @@ from repro_torch.core.detectors import FAST_OFFSETS
 from repro_torch.core.padding import reflect_pad
 from repro_torch.core.pyramid import (
     blur_valid, f32, gaussian_kernel_1d, octave_increments, sobel_valid,
+    sqrt_rn,
 )
 
 
@@ -44,7 +45,7 @@ def harris(img: torch.Tensor, *, k: float = 0.04, sigma: float = 1.0,
     if shi_tomasi:
         half_tr = 0.5 * (ixx + iyy)
         d = ixx - iyy
-        rad = torch.sqrt(torch.clamp_min(0.25 * (d * d) + ixy * ixy, 0.0))
+        rad = sqrt_rn(torch.clamp_min(0.25 * (d * d) + ixy * ixy, 0.0))
         return half_tr - rad
     det = ixx * iyy - ixy * ixy
     tr = ixx + iyy

@@ -6,7 +6,7 @@ A *span* is one timed operation (``queue_wait``, ``device_step``,
 its request passed router admission — so one request's whole journey
 (admission → replica queue → batch execution → cache tiers → possibly a
 ``readmit`` hop after ``ReplicaDied``) shares one id and renders as one
-lane in ``chrome://tracing`` (`spans_to_chrome`).
+lane in ``chrome://tracing`` (`obs/export.py`).
 
 The recorder is process-global and defaults to :class:`NoopRecorder`:
 every instrumentation site guards on ``enabled()`` before touching a
@@ -28,12 +28,14 @@ import contextlib
 import contextvars
 import dataclasses
 import itertools
-import json
 import os
 import threading
 import time
 from collections import deque
 from typing import Dict, Iterator, List, Optional, Tuple
+
+from repro_torch.obs.export import (spans_to_chrome,  # noqa: F401
+                                    write_chrome_trace)
 
 __all__ = ["Span", "NoopRecorder", "FlightRecorder", "get_recorder",
            "set_recorder", "enabled", "new_trace_id", "new_span_id",
@@ -252,33 +254,3 @@ def span(name: str, layer: str, *, trace_id: Optional[str] = None,
         emit_span(name, layer, t0, time.monotonic(), trace_id=trace_id,
                   parent_id=parent_id, **attrs)
 
-
-# ---- Chrome-trace export ----------------------------------------------------
-# The reference keeps these two in ``repro/obs/export.py`` with the fleet's
-# exporters; the flight recorder's dump is the only caller in this package.
-
-def spans_to_chrome(spans, metadata: Optional[dict] = None) -> dict:
-    """Render finished spans as a Chrome-trace document (events sorted
-    by start time, timestamps rebased to the earliest span)."""
-    ordered = sorted(spans, key=lambda s: (s.t0, s.t1))
-    t_base = ordered[0].t0 if ordered else 0.0
-    events = []
-    for s in ordered:
-        args = {"trace_id": s.trace_id, "span_id": s.span_id}
-        if s.parent_id:
-            args["parent_id"] = s.parent_id
-        args.update(dict(s.attrs))
-        events.append({"name": s.name, "cat": s.layer, "ph": "X",
-                       "ts": (s.t0 - t_base) * 1e6,
-                       "dur": max(0.0, s.t1 - s.t0) * 1e6,
-                       "pid": s.pid, "tid": s.thread, "args": args})
-    return {"traceEvents": events, "displayTimeUnit": "ms",
-            "metadata": {"span_count": len(events), **(metadata or {})}}
-
-
-def write_chrome_trace(path: str, spans,
-                       metadata: Optional[dict] = None) -> str:
-    """Write :func:`spans_to_chrome` output to ``path``; returns it."""
-    with open(path, "w") as f:
-        json.dump(spans_to_chrome(spans, metadata), f, indent=1)
-    return path

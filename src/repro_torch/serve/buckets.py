@@ -16,6 +16,14 @@ costs one graph launch on the host instead of one dispatch per op.  On the
 card a capture that fails raises: the step never runs eagerly instead.
 With ``device="cpu"`` the step runs eagerly (`EagerStep`).
 
+Each service's programs capture, upload, replay and copy back on a CUDA
+stream of the service's own, so replicas in one process (a thread fleet)
+never meet on the legacy default stream, and one process captures one
+graph at a time (`_CAPTURE_LOCK`): ``torch.cuda.graph`` synchronizes the
+device before it begins, which must not happen while another thread's
+capture is in flight.  A service that captures under traffic (a replica
+spawned by the autoscaler) thus never disturbs the others' replays.
+
 Padding reuses the engine's own convention: a request tile is treated as
 a one-tile scene (`core/bundle.py::tile_scene`), giving a reflect-padded
 halo ring and a header whose ``valid_h/valid_w`` confine detection to the
@@ -40,6 +48,9 @@ from repro_torch.data.pipeline import pinned_empty
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import profile as obs_profile
 from repro_torch.obs import trace as obs_trace
+
+# one graph capture at a time in this process (module docstring)
+_CAPTURE_LOCK = threading.Lock()
 
 
 class BucketTable:
@@ -164,9 +175,10 @@ class ServeGraph:
     """One (bucket, algorithm-set) step captured as a CUDA graph.
 
     The step runs on static device buffers (``tiles`` [B, hw, hw] f32,
-    ``headers`` [B, 6] i32): once eagerly on a side stream (which builds
-    and loads the kernel libraries and sets their one-time attributes
-    outside the capture), then under ``torch.cuda.graph`` into ``pool``.
+    ``headers`` [B, 6] i32): once eagerly on ``stream`` (which builds and
+    loads the kernel libraries and sets their one-time attributes outside
+    the capture), then under ``torch.cuda.graph`` into ``pool``, captured
+    on ``stream`` too; every call uploads, replays and copies back on it.
     The capture also packs every output into one byte buffer
     (`pack_outputs`), which a call copies to pinned host memory and
     unpacks: one copy back and one wait a step.
@@ -176,22 +188,19 @@ class ServeGraph:
     next call (the service's runner thread does exactly that)."""
 
     def __init__(self, step, batch: int, hw: int, device: torch.device,
-                 pool):
+                 pool, stream: torch.cuda.Stream):
         self.device = device
-        with torch.cuda.device(device):
+        self.stream = stream
+        with torch.cuda.device(device), torch.cuda.stream(stream):
             self.tiles = torch.zeros((batch, hw, hw), dtype=torch.float32,
                                      device=device)
             self.headers = torch.zeros((batch, 6), dtype=torch.int32,
                                        device=device)
             self.headers[:, 5] = 1
-            side = torch.cuda.Stream(device)
-            side.wait_stream(torch.cuda.current_stream(device))
-            with torch.cuda.stream(side):
-                step(self.tiles, self.headers)
-            torch.cuda.current_stream(device).wait_stream(side)
-            torch.cuda.synchronize(device)
+            step(self.tiles, self.headers)
+            stream.synchronize()
             self.graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(self.graph, pool=pool,
+            with torch.cuda.graph(self.graph, pool=pool, stream=stream,
                                   capture_error_mode="thread_local"):
                 self.outputs = step(self.tiles, self.headers)
                 self.packed, self.layout = pack_outputs(self.outputs)
@@ -202,16 +211,18 @@ class ServeGraph:
     def replay(self, tiles: np.ndarray, headers: np.ndarray) -> None:
         """Stage a batch into the static inputs (``non_blocking``; pinned
         sources copy asynchronously) and launch the graph."""
-        self.tiles.copy_(torch.from_numpy(tiles), non_blocking=True)
-        self.headers.copy_(torch.from_numpy(headers), non_blocking=True)
-        self.graph.replay()
+        with torch.cuda.stream(self.stream):
+            self.tiles.copy_(torch.from_numpy(tiles), non_blocking=True)
+            self.headers.copy_(torch.from_numpy(headers), non_blocking=True)
+            self.graph.replay()
 
     def fetch(self):
         """The last replay's outputs as ``{alg: {key: numpy}}``: one copy
         of the packed buffer to pinned memory, one wait on its event, and
         one host copy (the staging buffer is reused by the next step)."""
-        self.host.copy_(self.packed, non_blocking=True)
-        self.done.record(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(self.stream):
+            self.host.copy_(self.packed, non_blocking=True)
+            self.done.record(self.stream)
         self.done.synchronize()
         return unpack_outputs(self.host.numpy().copy(), self.layout)
 
@@ -225,8 +236,9 @@ class CompileCache:
 
     The scheduler pads every batch to ``max_batch`` rows, so each program
     sees exactly one input shape.  On a CUDA device a program is a
-    `ServeGraph`, all of one cache's graphs in one memory pool (one runner
-    thread calls them one at a time); on the CPU it is an `EagerStep`.
+    `ServeGraph`, all of one cache's graphs in one memory pool and on one
+    stream of the cache's own (one runner thread calls them one at a
+    time); on the CPU it is an `EagerStep`.
     ``programs`` counts distinct programs built — the serving metric the
     benchmark reports as compile-cache size."""
 
@@ -236,10 +248,10 @@ class CompileCache:
         self.max_batch = int(max_batch)
         self.use_kernels = use_kernels
         self.device = resolve_device(device)
-        self._pool = (torch.cuda.graph_pool_handle()
-                      if self.device.type == "cuda" else None)
+        cuda = self.device.type == "cuda"
+        self._pool = torch.cuda.graph_pool_handle() if cuda else None
+        self.stream = torch.cuda.Stream(self.device) if cuda else None
         self._fns: Dict[tuple, object] = {}
-        self._lock = threading.Lock()        # one capture at a time
 
     @property
     def programs(self) -> int:
@@ -253,7 +265,7 @@ class CompileCache:
         fn = self._fns.get(key)
         if fn is not None:
             return fn
-        with self._lock:
+        with _CAPTURE_LOCK:
             fn = self._fns.get(key)
             if fn is None:
                 step = make_serve_step(key[1], self.table.cfg_for(key[0]),
@@ -261,7 +273,7 @@ class CompileCache:
                 if self.device.type == "cuda":
                     fn = ServeGraph(step, self.max_batch,
                                     key[0] + 2 * self.table.halo,
-                                    self.device, self._pool)
+                                    self.device, self._pool, self.stream)
                 else:
                     fn = EagerStep(step)
                 self._fns[key] = fn
