@@ -142,13 +142,31 @@ Run from the root of a checkout, with no arguments: ``python3 chip_smoke.py``.
    reference's gates ``launch/fleet.py --smoke``, ``--replicas 2 --proc
    --kill-after 16 --smoke``, ``launch/obs.py --smoke`` and ``--fleet
    --smoke`` as subprocesses at once, each of which must exit 0.
-9. Prints the kernels JSON line (with ``launch_weighted_ms`` and
+9. Phase 3f, the data mesh (``distributed/``, the mesh branches of
+   ``core/{engine,job,mosaic}.py``) on the one card listed 4 times and
+   3 times (uneven splits): the paper scene (seven algorithms), SIFT at
+   tile 256, a ``DifetJob`` of the scene's first 50 tiles and the stitch
+   store's ``MatchPhase`` over all 6 pairs, each bit for bit the
+   ``mesh=None`` run, with the launch counts per device (counters at 0
+   just before each) and the profiler's device index showing every kernel
+   of each path on the card; times the scene and tile 256 with the slices
+   staged in advance, beside the one-device runs.
+10. Prints the kernels JSON line (with ``launch_weighted_ms`` and
    ``launch_weighted_bound_ms`` per kernel: the sum over the kernel's
    launches on its path of each one's measured time and its bound, and for
    the extraction kernels ``served_launches_per_replay`` by bucket), a
    ``serve`` line of phase 3d's figures, a ``fleet`` line of phase 3e's,
    the card's name and power
    limit, and last ``{"ok": true, "device": {...}}``.
+
+``python3 chip_smoke.py --mesh-cards N`` runs alone, on a host with N
+cards or more (else it exits 2): the build, phase 3f's cases on
+``data_mesh(m)`` for m = 1, 2, 4 up to N (each card must launch harris,
+fast, blur, scalespace and the matcher), the peak memory a card, Table 1
+per card count above 1 (``run_scaling`` over phase 3c's three RGBA
+scenes, one worker, beside the one-device sweep, which a mesh of one card
+runs; per-batch counts equal; each sweep's prefetcher alone and
+extraction alone), a ``mesh`` JSON line, the cards' names and power limits, and the last line.
 
 Any failure exits non-zero.  Without CUDA, or outside a checkout, it exits
 non-zero and prints no result.
@@ -225,6 +243,10 @@ FLEET_SMOKES = (                     # the reference's own gates
     ("-m", "repro_torch.launch.obs", "--smoke"),
     ("-m", "repro_torch.launch.obs", "--fleet", "--smoke"),
 )
+# phase 3f, the data mesh: the one card listed this many times, and the
+# job's bundle (the scene's first tiles: 4 shards of 13, 13, 12, 12)
+MESH_REPEAT = 4
+MESH_JOB_TILES = 50
 # device kernel names of each wrapper's kernels (the profiler's keys)
 DEVICE_NAMES = {"harris": ("harris_kernel",), "fast": ("fast_tiled",),
                 "blur": ("blur_tiled", "blur_small"),
@@ -1403,6 +1425,385 @@ def fleet_phase(torch, np, single_closed):
     return figures
 
 
+def build_phase(build):
+    """Phase 1: every kernel library built at once, and no spill in any
+    entry function."""
+    t0 = time.perf_counter()
+    built = build.build_all()
+    log(f"build: {len(built)} kernel libraries built with nvcc "
+        f"(sm_90a) from {CSRC} in {time.perf_counter() - t0:.2f} s")
+    # the spill gate reads the ptxas report that the build keeps beside each
+    # library, so it holds for libraries built by an earlier run as well
+    for name in build.SOURCES:
+        lib = build.library_path(name)
+        require(lib.exists() and lib.with_suffix(".log").exists(),
+                f"{name}: the library or its build report is missing")
+        entries = ptxas_entries(lib.with_suffix(".log").read_text())
+        require(entries, f"{name}: the build report lists no kernel")
+        for entry, regs, smem, spill in entries:
+            log(f"  {name}: {entry:28s} {regs:3d} registers, {smem:6d} B "
+                f"static shared, spills {spill}")
+            require(spill == "0 B stores, 0 B loads",
+                    f"{name}: {entry} spills registers")
+
+
+def same_bits(got, want, what):
+    """Two {key: tensor or array} results bit for bit, dtypes included."""
+    import torch
+    require(set(got) == set(want), f"{what}: other keys")
+    for key in want:
+        a, b = (torch.as_tensor(x).cpu() for x in (got[key], want[key]))
+        require(a.dtype == b.dtype and a.shape == b.shape
+                and torch.equal(a, b), f"{what}/{key}: differs from the "
+                "one-device run")
+
+
+def card_kernels(torch, fn, tries=3):
+    """{CUDA device index: {wrapper kernel}} of the device kernels one
+    ``fn()`` ran, by the profiler's device index (a session that recorded
+    no device kernel is run again, up to ``tries`` times)."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(tries):
+        for i in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(i)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            for i in range(torch.cuda.device_count()):
+                torch.cuda.synchronize(i)
+        seen = collections.defaultdict(set)
+        for ev in prof.events():
+            if ev.device_type == torch.autograd.DeviceType.CUDA:
+                kernel = kernel_of(ev.name)
+                if kernel is not None:
+                    seen[ev.device_index].add(kernel)
+        if seen:
+            return dict(seen)
+    return {}
+
+
+def peak_gib(torch, fn, cards):
+    """{card: GiB that one ``fn()`` allocated beyond what was held}."""
+    base = {}
+    for i in cards:
+        torch.cuda.synchronize(i)
+        base[i] = torch.cuda.memory_allocated(i)
+        torch.cuda.reset_peak_memory_stats(i)
+    fn()
+    for i in cards:
+        torch.cuda.synchronize(i)
+    return {i: (torch.cuda.max_memory_allocated(i) - base[i]) / 2 ** 30
+            for i in cards}
+
+
+def mesh_phase(torch, np, dev, meshes, bundle, bundle256, stitch_store):
+    """The data mesh (``distributed/``, the mesh branches of the engine,
+    the job and the match phase): the paper scene (seven algorithms), SIFT
+    at tile 256, a ``DifetJob`` and the stitch store's ``MatchPhase`` on
+    each mesh of ``meshes``, each bit for bit the one-device run on
+    ``dev`` (``mesh=None``), with every kernel of each path launched on
+    every card of the mesh (the per-device launch counts, and the
+    profiler's device index for the scene and tile 256 together); times
+    the scene and tile 256 with the slices staged
+    on their cards in advance, beside the one-device runs, and the peak
+    memory per card of a scene.  Returns the figures."""
+    import shutil
+    from repro_torch.configs.difet_paper import DifetConfig, PAPER_ALGORITHMS
+    from repro_torch.core import engine, mosaic
+    from repro_torch.core.bundle import BundleStore, TileBundle
+    from repro_torch.core.job import DifetJob
+    from repro_torch.distributed import shard
+    from repro_torch.kernels import ops
+
+    cfg, cfg256 = bundle.cfg, bundle256.cfg
+    figures = {"meshes": [[str(d) for d in m] for m in meshes]}
+    tiles = torch.from_numpy(bundle.tiles).to(dev)
+    headers = torch.from_numpy(bundle.headers).to(dev)
+    tiles256 = torch.from_numpy(bundle256.tiles).to(dev)
+    headers256 = torch.from_numpy(bundle256.headers).to(dev)
+
+    def one():
+        return engine.extract_features_multi(tiles, headers,
+                                             PAPER_ALGORITHMS, cfg,
+                                             device=dev)
+
+    def one256():
+        return engine.extract_features_multi(tiles256, headers256,
+                                             ("sift",), cfg256, device=dev)
+
+    want, want256 = one(), one256()
+    figures["one_device_scene_s"] = host_s(one, REPS)
+    figures["one_device_tile256_s"] = host_s(one256, REPS)
+    log(f"  one device ({dev}, mesh=None): scene "
+        f"{figures['one_device_scene_s']:.4f} s, tile-256 SIFT "
+        f"{figures['one_device_tile256_s']:.4f} s (median of {REPS})")
+
+    def launched(by_device, cards, kernels, what):
+        for card in cards:
+            for name in kernels:
+                require(by_device[name].get(card, 0) >= 1,
+                        f"{what}: kernel {name} was not launched on card "
+                        f"{card}")
+
+    # the job's bundle (4 shards of 13, 13, 12, 12 tiles) and the stitch
+    # store's scene pairs, all of them (6 pairs of 4 scenes, one chunk)
+    job_root = ROOT / "build" / "chip_smoke_mesh_job"
+    shutil.rmtree(job_root, ignore_errors=True)
+    algs = ",".join(PAPER_ALGORITHMS)
+
+    def job(tag, **kw):
+        store = BundleStore(job_root / tag)
+        store.put("b0", TileBundle(bundle.tiles[:MESH_JOB_TILES],
+                                   bundle.headers[:MESH_JOB_TILES], cfg))
+        DifetJob(store, algs, **kw).run()
+        return {alg: store.get_result(f"b0.{alg}")
+                for alg in PAPER_ALGORITHMS}
+
+    sstore = BundleStore(stitch_store)
+    scenes = sstore.list()
+    pairs = [(scenes[i], scenes[j]) for i in range(len(scenes))
+             for j in range(i + 1, len(scenes))]
+
+    def match(tag, **kw):
+        phase = mosaic.MatchPhase(
+            sstore, pairs, "orb", pairs_per_step=8,
+            manifest_path=job_root / f"match_{tag}.json", **kw)
+        phase.run()
+        return phase.results()
+
+    want_job = job("one", device=dev)
+    want_match = match("one", device=dev)
+    require(len(want_match) == len(pairs), "the match phase skipped pairs")
+
+    figures["per_mesh"] = []
+    for mesh in meshes:
+        cards = sorted({d.index for d in mesh})
+        tag = f"{mesh.size} entries on card(s) {cards}"
+        fig = {"entries": mesh.size, "cards": cards}
+        ext = engine.make_distributed_multi_extractor(PAPER_ALGORITHMS, cfg,
+                                                      mesh)
+        ext256 = engine.make_distributed_multi_extractor(("sift",), cfg256,
+                                                         mesh)
+        st, sh = shard(bundle.tiles, mesh), shard(bundle.headers, mesh)
+        st256 = shard(bundle256.tiles, mesh)
+        sh256 = shard(bundle256.headers, mesh)
+        # the paper scene, counters at 0 just before
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        got = ext(st, sh)
+        torch.cuda.synchronize()
+        by_device = ops.launch_counts_by_device()
+        launched(by_device, cards, MAIN_KERNELS, f"scene on {tag}")
+        require(ops.launch_counts()["scalespace"] == 0,
+                f"scene on {tag}: the scale-space kernel ran at tile 512")
+        for alg in PAPER_ALGORITHMS:
+            same_bits(got[alg], want[alg], f"scene on {tag}: {alg}")
+        fig["scene_launches"] = {k: {str(c): n for c, n in v.items()}
+                                 for k, v in by_device.items()}
+        del got
+        # SIFT at tile 256: the fused octave on every card
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        got = ext256(st256, sh256)
+        torch.cuda.synchronize()
+        launched(ops.launch_counts_by_device(), cards, ("scalespace", "blur"),
+                 f"tile-256 SIFT on {tag}")
+        same_bits(got["sift"], want256["sift"], f"tile-256 SIFT on {tag}")
+        del got
+        # the job and the match phase
+        ops.reset_launch_counts()
+        got_job = job(f"mesh{len(figures['per_mesh'])}", mesh=mesh)
+        launched(ops.launch_counts_by_device(), cards, MAIN_KERNELS,
+                 f"DifetJob on {tag}")
+        for alg in PAPER_ALGORITHMS:
+            same_bits(got_job[alg], want_job[alg], f"DifetJob on {tag}: {alg}")
+        ops.reset_launch_counts()
+        got_match = match(f"mesh{len(figures['per_mesh'])}", mesh=mesh)
+        torch.cuda.synchronize()
+        launched(ops.launch_counts_by_device(), cards, MATCH_KERNELS,
+                 f"MatchPhase on {tag}")
+        require(got_match.keys() == want_match.keys(),
+                f"MatchPhase on {tag}: other pairs")
+        for pair, r in got_match.items():
+            same_bits(r, want_match[pair], f"MatchPhase on {tag}: {pair}")
+        # every card ran harris, fast, blur and scalespace: the profiler
+        seen = card_kernels(torch, lambda: (ext(st, sh),
+                                            ext256(st256, sh256)))
+        for card in cards:
+            require(set(EXTRACT_KERNELS) <= seen.get(card, set()),
+                    f"the profiler saw {sorted(seen.get(card, ()))} on card "
+                    f"{card} of {tag}")
+        fig["profiler_kernels"] = {str(c): sorted(k) for c, k in seen.items()}
+        # times, slices staged on their cards in advance
+        fig["scene_s"] = host_s(lambda: ext(st, sh), REPS)
+        fig["tile256_s"] = host_s(lambda: ext256(st256, sh256), REPS)
+        fig["peak_gib"] = {str(c): g for c, g in peak_gib(
+            torch, lambda: ext(st, sh), cards).items()}
+        log(f"  mesh of {tag}: scene, tile-256 SIFT, DifetJob "
+            f"({MESH_JOB_TILES} tiles, 4 shards) and MatchPhase "
+            f"({len(pairs)} pairs) bitwise the one-device runs; harris, "
+            f"fast, blur, scalespace and matcher launched on every card "
+            f"(profiler: {fig['profiler_kernels']}); scene "
+            f"{fig['scene_s']:.4f} s, tile-256 SIFT {fig['tile256_s']:.4f} s "
+            f"(median of {REPS}); peak GiB a card {fig['peak_gib']}")
+        figures["per_mesh"].append(fig)
+        del st, sh, st256, sh256, ext, ext256
+    shutil.rmtree(job_root, ignore_errors=True)
+    return figures
+
+
+def mesh_table1(torch, dev, meshes, cfg):
+    """Table 1 per card count: ``run_scaling`` over phase 3c's three RGBA
+    scenes (12 batches of 64, one worker, the best of 2 passes) with each
+    batch split over each mesh of more than one card (a mesh of one card
+    runs the one-device sweep), beside the one-device sweep; per-batch
+    counts equal across all.  Splits each sweep's time in two: the
+    prefetcher alone (ingest and the copies to the cards, no extraction:
+    one pass that stages all 12 batches) and the extraction alone (those
+    staged batches, each result brought to the host as the sweep does; the
+    second of two passes).
+    Returns {label: {algorithm: seconds}}, the split and the counts."""
+    from repro_torch.data.pipeline import (Prefetcher, iter_tile_batches,
+                                           pinned_empty)
+    from repro_torch.launch import scale
+    t0 = time.perf_counter()
+    readers = scale.build_scene_set(ROOT / "build" / "chip_smoke_table1", 3,
+                                    cfg.scene_hw)
+    log(f"  Table 1 on the meshes: {len(readers)} RGBA band scenes of "
+        f"{readers[0].shape}, written or reopened in "
+        f"{time.perf_counter() - t0:.1f} s; batches of {BATCH_TILES}, one "
+        f"worker, {','.join(SWEEP_ALGORITHMS)}")
+    runs = {"one_device": dict(device=dev)}
+    runs.update({f"cards_{m.size}": dict(mesh=m) for m in meshes
+                 if m.size > 1})
+
+    def sync_all():
+        for i in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(i)
+
+    def extract_s(fn, batches):
+        sync_all()
+        t = time.perf_counter()
+        for b in batches:
+            for r in fn(b.tiles, b.headers).values():
+                for v in r.values():
+                    v.cpu()
+        return time.perf_counter() - t
+
+    times, split, counts = {}, {}, {}
+    for label, kw in runs.items():
+        rows = scale.run_scaling(readers, cfg, SWEEP_ALGORITHMS, (1,),
+                                 batch_tiles=BATCH_TILES, repeats=2, **kw)
+        times[label] = {r["algorithm"]: r["t"][1] for r in rows}
+        counts[label] = {r["algorithm"]: r["batch_counts"] for r in rows}
+        require(all(r["n_batches"] == 12 and r["total_count"] > 0
+                    for r in rows), f"Table 1 ({label}): batches or counts")
+        require(counts[label] == counts["one_device"],
+                f"Table 1 ({label}): per-batch counts differ from the "
+                f"one-device sweep's")
+        sync_all()
+        t = time.perf_counter()
+        with Prefetcher(iter_tile_batches(readers, cfg, BATCH_TILES,
+                                          alloc=pinned_empty),
+                        depth=scale.PREFETCH_DEPTH, device_put=True,
+                        **kw) as pf:
+            batches = [b for _, b in pf]
+        sync_all()
+        split[label] = {"prefetcher_s": time.perf_counter() - t}
+        for alg in SWEEP_ALGORITHMS:
+            fn = scale.make_batch_extractor((alg,), cfg, **kw)
+            extract_s(fn, batches)
+            split[label][f"extract_{alg}_s"] = extract_s(fn, batches)
+        del batches
+        log(f"    {label:10s} sweep " + "  ".join(
+            f"{alg} {t:.4f} s" for alg, t in times[label].items())
+            + f"; prefetcher alone {split[label]['prefetcher_s']:.4f} s; "
+            "extraction alone " + "  ".join(
+                f"{alg} {split[label][f'extract_{alg}_s']:.4f} s"
+                for alg in SWEEP_ALGORITHMS))
+    return times, split, {alg: sum(c)
+                          for alg, c in counts["one_device"].items()}
+
+
+def mesh_cards_main(n_cards: int) -> int:
+    """``--mesh-cards N``: the build, the data mesh on ``data_mesh(m)`` for
+    m in 1, 2, 4 up to N (`mesh_phase`), Table 1 per card count
+    (`mesh_table1`), and the closing lines.  Fails on a host with fewer
+    than N cards."""
+    if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
+        print("chip_smoke: run from the root of a checkout (src/repro_torch "
+              "not found)", file=sys.stderr)
+        return 2
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false",
+              file=sys.stderr)
+        return 2
+    if torch.cuda.device_count() < n_cards:
+        print(f"chip_smoke: --mesh-cards {n_cards} needs {n_cards} cards, "
+              f"this host has {torch.cuda.device_count()}", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    import numpy as np
+
+    from repro_torch.configs.difet_paper import DifetConfig
+    from repro_torch.core.bundle import tile_scene
+    from repro_torch.data.landsat import synthetic_scene
+    from repro_torch.distributed import data_mesh
+    from repro_torch.kernels import build
+    from repro_torch.launch import stitch
+
+    dev = torch.device("cuda", 0)
+    log("torch", torch.__version__, "cuda", torch.version.cuda, "devices",
+        [torch.cuda.get_device_name(i)
+         for i in range(torch.cuda.device_count())])
+    t0 = time.perf_counter()
+    build_phase(build)
+    log(f"phase 1 (build): {time.perf_counter() - t0:.1f} s")
+    cfg = DifetConfig()
+    cfg256 = DifetConfig(tile=256, halo=24, max_keypoints_per_tile=256)
+    scene = synthetic_scene(*cfg.scene_hw, seed=0)
+    bundle, bundle256 = tile_scene(scene, cfg), tile_scene(scene, cfg256)
+    del scene
+    stitch_store = ROOT / "build" / "chip_smoke_mesh_stitch"
+    import shutil
+    shutil.rmtree(stitch_store, ignore_errors=True)
+    stitch.main(STITCH_ARGS + ["--store", str(stitch_store), "--mesh",
+                               "none"], device=dev)
+    meshes = [data_mesh(m) for m in (1, 2, 4) if m < n_cards]
+    meshes.append(data_mesh(n_cards))
+    t0 = time.perf_counter()
+    log(f"data mesh on {[m.size for m in meshes]} card(s):")
+    figures = mesh_phase(torch, np, dev, meshes, bundle, bundle256,
+                         stitch_store)
+    (figures["table1_s"], figures["table1_split_s"],
+     figures["table1_counts"]) = mesh_table1(torch, dev, meshes, cfg)
+    t1 = figures["table1_s"]
+    for m in meshes:
+        if m.size > 1:
+            log(f"  Table 1 speedup on {m.size} cards over the one-device "
+                f"sweep (one worker): " + ", ".join(
+                    f"{alg} {t1['one_device'][alg] / t:.3f}x"
+                    for alg, t in t1[f"cards_{m.size}"].items())
+                + "; the reference's gate "
+                "(benchmarks/table1_scalability.py:31) is sift >= 1.6x at 2 "
+                "workers")
+    log(f"phase 3f (data mesh, {n_cards} cards): "
+        f"{time.perf_counter() - t0:.1f} s")
+    shutil.rmtree(stitch_store, ignore_errors=True)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    for line in smi.stdout.strip().splitlines():
+        log("card: " + line)
+    print("mesh " + json.dumps(figures))
+    print(smi.stdout.strip().splitlines()[0])
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke: run from the root of a checkout (src/repro_torch "
@@ -1444,24 +1845,7 @@ def main() -> int:
         phase_start[0] = now
 
     # ---- 1. build -----------------------------------------------------------
-    t0 = time.perf_counter()
-    built = build.build_all()
-    log(f"build: {len(built)} kernel libraries built with nvcc "
-        f"(sm_90a) from {CSRC} in {time.perf_counter() - t0:.2f} s")
-    # the spill gate reads the ptxas report that the build keeps beside each
-    # library, so it holds for libraries built by an earlier run as well
-    for name in build.SOURCES:
-        lib = build.library_path(name)
-        require(lib.exists() and lib.with_suffix(".log").exists(),
-                f"{name}: the library or its build report is missing")
-        entries = ptxas_entries(lib.with_suffix(".log").read_text())
-        require(entries, f"{name}: the build report lists no kernel")
-        for entry, regs, smem, spill in entries:
-            log(f"  {name}: {entry:28s} {regs:3d} registers, {smem:6d} B "
-                f"static shared, spills {spill}")
-            require(spill == "0 B stores, 0 B loads",
-                    f"{name}: {entry} spills registers")
-
+    build_phase(build)
     phase_done("1 (build)")
 
     # ---- inputs: the paper's scene, tiled -----------------------------------
@@ -2126,6 +2510,16 @@ def main() -> int:
     fleet_figures = fleet_phase(torch, np, served["closed_uncached"])
     phase_done("3e (replica fleet)")
 
+    # ---- 3f. the data mesh on the one card ----------------------------------
+    from repro_torch.distributed import Mesh
+    log(f"data mesh on one card: the card listed {MESH_REPEAT} times "
+        f"and 3 times (uneven splits):")
+    mesh_figures = mesh_phase(torch, np, dev,
+                              [Mesh([dev] * MESH_REPEAT), Mesh([dev] * 3)],
+                              bundle, bundle256, store)
+    torch.cuda.empty_cache()
+    phase_done("3f (data mesh)")
+
     # ---- 4. timings ---------------------------------------------------------
     log("timings (median of %d, CUDA events around one call; [device time "
         "per call under torch.profiler]):" % REPS)
@@ -2463,6 +2857,7 @@ def main() -> int:
     log("serve " + json.dumps({k: v for k, v in served.items()
                                if k != "per_replay"}))
     log("fleet " + json.dumps(fleet_figures))
+    log("mesh " + json.dumps(mesh_figures))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
@@ -2475,4 +2870,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-cards"] and len(sys.argv) == 3:
+        sys.exit(mesh_cards_main(int(sys.argv[2])))
+    if sys.argv[1:]:
+        print("usage: chip_smoke.py [--mesh-cards N]", file=sys.stderr)
+        sys.exit(2)
     sys.exit(main())

@@ -138,22 +138,29 @@ def _select_and_describe(spec: AlgorithmSpec, cfg: DifetConfig, tiles,
     return out
 
 
+def iter_tile_multi(algorithms, cfg: DifetConfig, tiles: torch.Tensor,
+                    headers: torch.Tensor, use_kernels: bool = True):
+    """`extract_tile_multi` one algorithm at a time: yields ``(algorithm,
+    features)`` in order, so that a caller can interleave the maps of
+    several devices (`make_distributed_extractor`'s round-robin issue)."""
+    resp_cache = {}
+    for alg in algorithms:
+        spec = ALGORITHMS[alg]
+        if spec.response not in resp_cache:
+            resp_cache[spec.response] = spec.response(tiles, cfg, use_kernels)
+        yield alg, _select_and_describe(spec, cfg, tiles, headers,
+                                        resp_cache[spec.response],
+                                        use_kernels)
+
+
 def extract_tile_multi(algorithms, cfg: DifetConfig, tiles: torch.Tensor,
                        headers: torch.Tensor, use_kernels: bool = True):
     """The per-tile map for several algorithms over a batch [N,H,W],
     computing each distinct response function ONCE: ``fast``/``brief``/
     ``orb`` share the FAST score map.  Returns {algorithm: features}, each
     feature batched over the N tiles."""
-    resp_cache = {}
-    out = {}
-    for alg in algorithms:
-        spec = ALGORITHMS[alg]
-        if spec.response not in resp_cache:
-            resp_cache[spec.response] = spec.response(tiles, cfg, use_kernels)
-        out[alg] = _select_and_describe(spec, cfg, tiles, headers,
-                                        resp_cache[spec.response],
-                                        use_kernels)
-    return out
+    return dict(iter_tile_multi(algorithms, cfg, tiles, headers,
+                                use_kernels))
 
 
 def _reduce_features(per_tile):
@@ -186,15 +193,91 @@ def _reduce_features(per_tile):
     return result
 
 
+def _local_reduce(per_tile):
+    """The first stage of the two-stage reduce, on one mesh entry's tiles:
+    the entry's own stable top ``min(4k, t_i k)`` of its masked flat
+    scores (invalid slots at -inf, kept as -inf) with the keypoints, flags
+    and descriptors gathered at them, its per-tile counts and its
+    keypoint count.  See `merge_reduced`."""
+    t, k = per_tile["scores"].shape
+    flat_scores = per_tile["scores"].reshape(t * k)
+    flat_valid = per_tile["valid"].reshape(t * k)
+    masked = torch.where(flat_valid, flat_scores,
+                         torch.full_like(flat_scores, float("-inf")))
+    top_scores, idx = nms.stable_topk(masked, min(k * 4, t * k))
+
+    def gather(a):
+        return a.reshape(t * k, *a.shape[2:])[idx]
+
+    out = {"per_tile_count": per_tile["count"],
+           "keypoint_count": per_tile["valid"].sum(),
+           "scores": top_scores, "ys": gather(per_tile["ys"]),
+           "xs": gather(per_tile["xs"]), "valid": gather(per_tile["valid"])}
+    if "desc" in per_tile:
+        out["desc"] = gather(per_tile["desc"])
+    return out
+
+
+def merge_reduced(parts, k: int):
+    """The second stage: ``parts`` are the `_local_reduce` results of
+    contiguous tile slices, in slice order, all on one device.  Equal, bit
+    for bit and dtype for dtype, to `_reduce_features` over the whole
+    batch:
+
+    * counts: the per-tile counts concatenate in tile order and are summed
+      as one tensor, as the one-stage reduce sums them; keypoint counts are
+      integers and add exactly.
+    * top-K: the one-stage reduce keeps the first ``M = min(4k, t k)``
+      slots in the order (score descending, flat index ascending).  A slot
+      of entry i among them has fewer than M slots of entry i ahead of it
+      in that order, so it is among entry i's own first ``min(4k, t_i k)``
+      (M <= 4k, and the entry has t_i k slots): the candidates hold the
+      whole answer, the -inf fill slots it needs included (at most
+      ``4k - V`` of them, V the valid slots of all entries; each entry's
+      list holds its own lowest-index ones).  Each entry's list is in that
+      order; the slices are contiguous, so among equal scores the
+      concatenation in slice order is flat-index order, and the stable
+      top-M of the concatenation is the one-stage top-M.
+
+    Only the candidates cross devices (``4k`` slots an entry; for SIFT
+    ``4k x 128`` floats, not ``[t, k, 128]``)."""
+    def cat(key):
+        return torch.cat([p[key] for p in parts])
+
+    per_tile_count = cat("per_tile_count")
+    t = per_tile_count.shape[0]
+    top_scores, idx = nms.stable_topk(cat("scores"), min(k * 4, t * k))
+    finite = torch.isfinite(top_scores)
+    result = {
+        "total_count": per_tile_count.sum(),
+        "per_tile_count": per_tile_count,
+        "top_scores": torch.where(finite, top_scores,
+                                  torch.zeros_like(top_scores)),
+        "top_ys": cat("ys")[idx],
+        "top_xs": cat("xs")[idx],
+        "top_valid": cat("valid")[idx] & finite,
+        "keypoint_count": torch.stack(
+            [p["keypoint_count"] for p in parts]).sum(),
+    }
+    if "desc" in parts[0]:
+        result["top_desc"] = cat("desc")[idx]
+    return result
+
+
 def resolve_device(device=None) -> torch.device:
     """``None`` means the CUDA card.  A CUDA device on a host without CUDA
     raises instead of quietly running on the CPU: pass ``device="cpu"`` to
-    ask for the CPU."""
+    ask for the CPU.  A CUDA device always comes back with its index (a
+    bare ``"cuda"`` is the calling thread's current card), so that it
+    names one card from any thread."""
     dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "CUDA is not available on this host; pass device='cpu' to run "
-            "the plain PyTorch path on the CPU")
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "CUDA is not available on this host; pass device='cpu' to "
+                "run the plain PyTorch path on the CPU")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 
@@ -298,3 +381,59 @@ def make_serve_step(algorithms, cfg: DifetConfig, use_kernels: bool = True,
         return extract_request_features(tiles, headers, algorithms, cfg,
                                         use_kernels, dev)
     return step
+
+
+def make_distributed_multi_extractor(algorithms, cfg: DifetConfig, mesh,
+                                     use_kernels: bool = True):
+    """The extractor over a data mesh (`distributed/sharding.py::Mesh`):
+    ``run(tiles, headers) -> {algorithm: result}`` with every result on
+    the mesh's first device, bit for bit `extract_features_multi`'s on the
+    whole batch.
+
+    The tiles and headers (numpy arrays, tensors on any device, or
+    `Sharded` batches on ``mesh``, as `data/pipeline.py::Prefetcher(mesh=)`
+    stages them) are cut into contiguous row slices in mesh order, each on
+    its own entry's device (the split may be uneven; an entry without rows
+    sits out).  Each entry runs the map and the first stage of the reduce
+    (`_local_reduce`) on its own stream; only the candidates and the
+    per-tile counts cross to the first device, where `merge_reduced` takes
+    the count sum and the global top-K (see its docstring for why that is
+    the one-stage reduce).  Everything per tile stays on its entry's card.
+    The calling thread issues the entries' work in turn (`MeshRunner`).
+    Every mesh runs this split, one of one entry too; the jobs and the
+    sweep send such a mesh to the one-device code instead
+    (`distributed/sharding.py::one_device`)."""
+    from repro_torch.distributed.sharding import MeshRunner, shard
+    algorithms = tuple(algorithms)
+    k = cfg.max_keypoints_per_tile
+    runner = MeshRunner(mesh)
+
+    def run(tiles, headers):
+        tiles = shard(tiles, mesh, torch.float32)
+        headers = shard(headers, mesh, torch.int32)
+        entries = [i for i, p in enumerate(tiles.parts) if len(p)] or [0]
+
+        def work(i):
+            for alg, feats in iter_tile_multi(algorithms, cfg,
+                                              tiles.parts[i],
+                                              headers.parts[i], use_kernels):
+                yield alg, _local_reduce(feats)
+
+        parts = runner.run(work, entries)
+        return {alg: merge_reduced([p[alg] for p in parts], k)
+                for alg in algorithms}
+
+    return run
+
+
+def make_distributed_extractor(algorithm: str, cfg: DifetConfig, mesh,
+                               use_kernels: bool = True):
+    """`make_distributed_multi_extractor` for one algorithm:
+    ``run(tiles, headers) -> result``, bit for bit `extract_features`."""
+    run_multi = make_distributed_multi_extractor((algorithm,), cfg, mesh,
+                                                 use_kernels)
+
+    def run(tiles, headers):
+        return run_multi(tiles, headers)[algorithm]
+
+    return run

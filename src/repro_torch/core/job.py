@@ -9,9 +9,13 @@ Port of ``repro/core/job.py``.  ``ManifestJob`` is the generic machinery
 (manifest + atomic commit + resume loop + per-worker leases); ``DifetJob``
 is the extraction phase over bundles, on the port's engine; the stitching
 workload's registration phase (``core/mosaic.py::MatchPhase``) reuses the
-same machinery.  Left out for now: the mesh-sharded extraction branch
-(one card).  Counters (``repro_torch.obs``): ``difet.job.lease_acquires``,
-``difet.job.lease_steals`` and ``difet.job.manifest_commits``.
+same machinery.  With ``mesh=`` each shard of a bundle runs split over
+the mesh's devices (`core/engine.py::make_distributed_multi_extractor`,
+bit for bit the one-device result; the split may be uneven, so the
+reference's padding to the mesh size and its ``_slice_result`` crop have
+no counterpart).  Counters (``repro_torch.obs``):
+``difet.job.lease_acquires``, ``difet.job.lease_steals`` and
+``difet.job.manifest_commits``.
 
 Multi-worker protocol: the manifest's item order is fixed at creation and
 never rewritten.  Workers coordinate through ``LeaseBoard``: an item is
@@ -32,8 +36,11 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.configs.difet_paper import DifetConfig
 from repro_torch.core.bundle import BundleStore, TileBundle
-from repro_torch.core.engine import extract_features_multi
+from repro_torch.core.engine import (extract_features_multi,
+                                     make_distributed_multi_extractor)
+from repro_torch.distributed.sharding import one_device
 from repro_torch.obs import metrics as obs_metrics
 
 
@@ -305,13 +312,17 @@ class DifetJob(ManifestJob):
     ``extract_features_multi`` so that shared responses are computed once;
     results are stored per algorithm (``<bundle>.<alg>``), as numpy.
     ``use_kernels`` and ``device`` go to the engine (the CUDA card and its
-    kernels unless told otherwise)."""
+    kernels unless told otherwise).  ``mesh`` (a
+    `distributed/sharding.py::Mesh`) splits each shard over its devices
+    instead of running it on ``device``; the results are the same bits.
+    A mesh of one entry runs the one-device code on its device."""
 
     def __init__(self, store: BundleStore, algorithm: str,
                  manifest_path=None, shards_per_bundle: int = 4,
                  extractor: Optional[Callable] = None,
                  use_kernels: bool = True, device=None,
-                 lease_ttl_s: float = 600.0):
+                 lease_ttl_s: float = 600.0, mesh=None):
+        mesh, device = one_device(mesh, device)
         # a custom extractor's output is opaque: store it under the full
         # job name rather than splitting into per-algorithm results
         if extractor is not None:
@@ -324,6 +335,8 @@ class DifetJob(ManifestJob):
         self.extractor = extractor
         self.use_kernels = use_kernels
         self.device = device
+        self.mesh = mesh
+        self._sharded_fns: Dict[DifetConfig, Callable] = {}
         super().__init__(store, algorithm, manifest_path=manifest_path,
                          shards_per_bundle=shards_per_bundle,
                          lease_ttl_s=lease_ttl_s)
@@ -336,9 +349,19 @@ class DifetJob(ManifestJob):
         return [TileBundle(bundle.tiles[s], bundle.headers[s], bundle.cfg)
                 for s in splits if len(s)]
 
+    def _sharded_fn(self, cfg: DifetConfig) -> Callable:
+        """One mesh extractor (its streams) per configuration; the
+        algorithms are the job's."""
+        if cfg not in self._sharded_fns:
+            self._sharded_fns[cfg] = make_distributed_multi_extractor(
+                self.algorithms, cfg, self.mesh, self.use_kernels)
+        return self._sharded_fns[cfg]
+
     def _extract(self, tiles, headers, cfg) -> Dict[str, Dict]:
         if self.extractor is not None:
             return {self.algorithm: self.extractor(tiles, headers)}
+        if self.mesh is not None:
+            return self._sharded_fn(cfg)(tiles, headers)
         return extract_features_multi(tiles, headers, self.algorithms, cfg,
                                       use_kernels=self.use_kernels,
                                       device=self.device)

@@ -10,15 +10,16 @@ Port of ``repro/core/mosaic.py``.  The pipeline (driven by
      checkpointed ``ManifestJob``; each chunk goes through
      ``make_pair_solver``, which registers its pairs one after the other
      on the device (the reference's ``vmap`` over pairs, written as a
-     loop, so each pair's result equals the single-pair call);
+     loop, so each pair's result equals the single-pair call); with
+     ``mesh=`` the chunk's pairs are split over the mesh's devices
+     (`_shard_batch`), each entry registering its own pairs on its card;
   3. ``solve_layout`` anchors the first scene and walks the inlier-verified
      pair graph to absolute positions; ``mosaic_summary`` reports them.
 
 Pair results are stored under a job-qualified name, so a killed match
 phase resumes where it died.  RANSAC draws come from (seed, pair index)
-(``matching.uniform_draws``), so a restart registers a pair exactly as
-before.  The reference's sharding of the pair batch over a mesh waits for
-the port's scale-out slice.
+(``matching.uniform_draws``), so neither a restart nor a mesh changes a
+pair's registration.
 """
 from __future__ import annotations
 
@@ -35,6 +36,8 @@ from repro_torch.core import matching
 from repro_torch.core.bundle import BundleStore
 from repro_torch.core.engine import resolve_device
 from repro_torch.core.job import ManifestJob
+from repro_torch.distributed.sharding import (MeshRunner, one_device,
+                                              split_rows)
 
 
 def pair_name(a: str, b: str) -> str:
@@ -80,23 +83,40 @@ def make_pair_solver(metric: Optional[str], ratio: float, tol: float,
     return solve
 
 
+def _shard_batch(arrays: List, mesh) -> List[Tuple[int, List]]:
+    """The leading pair axis split over the mesh: ``(entry, [each array's
+    rows of that entry])`` for each entry given pairs, contiguous and in
+    mesh order (`split_rows`; uneven where P is not a multiple of the mesh
+    size, so the reference's padding of P has no counterpart)."""
+    return [(i, [a[lo:hi] for a in arrays])
+            for i, (lo, hi) in enumerate(split_rows(len(arrays[0]), mesh))
+            if hi > lo]
+
+
 class MatchPhase(ManifestJob):
     """Checkpointed pairwise registration over extraction results.
 
     Work items are fixed chunks of the pair list; each pair commits its own
     ``<a>__<b>.match`` result.  Restart-deterministic: the RANSAC draws come
-    from the seed and the global pair index, not from the clock."""
+    from the seed and the global pair index, not from the clock.  With
+    ``mesh`` (a `distributed/sharding.py::Mesh`, instead of ``device``)
+    each chunk's pairs are split over the mesh's devices, each entry
+    registering its own on its card and stream; a pair's result does not
+    depend on the entry that registered it.  A mesh of one entry registers
+    on its device, as ``device`` does."""
 
     def __init__(self, store: BundleStore, pairs: Sequence[Tuple[str, str]],
                  algorithm: str, *, metric: Optional[str] = None,
                  ratio: float = 0.8, tol: float = 2.0, iters: int = 128,
                  pairs_per_step: int = 8, use_kernels: Optional[bool] = None,
-                 device=None, manifest_path=None, seed: int = 0):
+                 device=None, manifest_path=None, seed: int = 0, mesh=None):
+        mesh, device = one_device(mesh, device)
         self.pairs = [tuple(p) for p in pairs]
         self._pair_index = {p: i for i, p in enumerate(self.pairs)}
         self.algorithm = algorithm
         self.seed = seed
         self.device = device
+        self.mesh = mesh
         self._params = (metric, float(ratio), float(tol), int(iters),
                         use_kernels)
         self._chunks = {
@@ -125,6 +145,24 @@ class MatchPhase(ManifestJob):
     def _solver(self):
         return make_pair_solver(*self._params, device=self.device)
 
+    @functools.cached_property
+    def _mesh_solvers(self):
+        """One solver per distinct device of the mesh, and the runner."""
+        return ({d: make_pair_solver(*self._params, device=d)
+                 for d in dict.fromkeys(self.mesh)}, MeshRunner(self.mesh))
+
+    def _solve_on_mesh(self, batch: List, draws) -> Dict[str, np.ndarray]:
+        solvers, runner = self._mesh_solvers
+        shards = dict(_shard_batch(batch + [draws], self.mesh))
+
+        def work(i):
+            yield "pairs", solvers[self.mesh[i]](*shards[i])
+
+        parts = runner.run(work, list(shards))
+        return {k: np.concatenate([p["pairs"][k].cpu().numpy()
+                                   for p in parts])
+                for k in parts[0]["pairs"]}
+
     def process(self, name: str) -> None:
         chunk = self._chunks[name]
         fa = [self._features(a) for a, _ in chunk]
@@ -136,8 +174,11 @@ class MatchPhase(ManifestJob):
             for p in chunk])
         batch = [np.stack([f[k] for f in fs]) for fs in (fa, fb)
                  for k in ("ys", "xs", "desc", "valid")]
-        out = {k: v.cpu().numpy()
-               for k, v in self._solver(*batch, draws).items()}
+        if self.mesh is not None:
+            out = self._solve_on_mesh(batch, draws)
+        else:
+            out = {k: v.cpu().numpy()
+                   for k, v in self._solver(*batch, draws).items()}
         for i, (a, b) in enumerate(chunk):
             self.store.put_result(self._result_name(a, b), {
                 "t": out["t"][i], "n_inliers": out["n_inliers"][i],

@@ -24,8 +24,10 @@ bounded whatever the scene's height:
   ``close()`` always reclaims the thread.
 
 The numpy parts are copies of the reference's and bitwise equal to it.  The
-reference's ``sharding`` argument to the prefetcher is not ported: there is
-no device mesh in the port yet.
+reference's ``sharding`` argument to the prefetcher is ``mesh=`` here: each
+batch is cut into its mesh entries' row slices (`distributed/sharding.py`),
+each copied from the batch's pinned buffer straight to its own card on a
+copy stream of that card.
 """
 from __future__ import annotations
 
@@ -41,6 +43,7 @@ from repro_torch.configs.difet_paper import DifetConfig
 from repro_torch.core.bundle import TileBundle
 from repro_torch.core.engine import resolve_device
 from repro_torch.data.landsat import SceneReader
+from repro_torch.distributed.sharding import Mesh, Sharded, split_rows
 
 __all__ = ["StreamTiler", "iter_scene_tiles", "iter_tile_batches",
            "Prefetcher", "reflect_indices", "pinned_empty"]
@@ -335,18 +338,34 @@ class Prefetcher:
     marks the staged tensors as used on it (``record_stream``) before it
     hands the batch over, so work queued on the consumer's stream never
     reads a half-copied batch.
+
+    Staging over a mesh (``device_put=True, mesh=``, instead of
+    ``device``): each array becomes a `Sharded` batch, its rows cut by
+    `split_rows` and each slice copied from the pinned buffer straight to
+    its entry's card, on a copy stream per card; ``__next__`` makes the
+    consumer's stream on each card wait on that card's event and marks
+    each slice as used there.  No card holds the whole batch.  On a CPU
+    mesh the slices are views of the host batch.
     """
 
     _DONE = object()
 
     def __init__(self, it: Iterable, depth: int = 2,
-                 device_put: bool = False, device=None):
+                 device_put: bool = False, device=None,
+                 mesh: Optional[Mesh] = None):
         if depth <= 0:
             raise ValueError(f"depth must be positive, got {depth}")
-        self._device = resolve_device(device) if device_put else None
+        if mesh is not None and device is not None:
+            raise ValueError("stage onto a device or a mesh, not both")
+        self._mesh = mesh if device_put else None
+        self._device = (resolve_device(device)
+                        if device_put and mesh is None else None)
         self._stream = (torch.cuda.Stream(self._device)
                         if self._device is not None
                         and self._device.type == "cuda" else None)
+        self._mesh_streams = (
+            {d: torch.cuda.Stream(d) for d in dict.fromkeys(self._mesh)}
+            if self._mesh is not None and self._mesh.type == "cuda" else {})
         self._q: queue.Queue = queue.Queue(maxsize=depth)
         self._stop = threading.Event()
         self._error: Optional[BaseException] = None
@@ -355,14 +374,29 @@ class Prefetcher:
             name="difet-prefetch")
         self._thread.start()
 
-    def _stage_array(self, a: np.ndarray, staged: List[torch.Tensor]):
+    def _stage_array(self, a: np.ndarray, staged: List):
         t = _host_tensor(a)
+        if self._mesh is not None:
+            return self._stage_sharded(t, staged)
         if self._stream is not None:
             if not t.is_pinned():
                 t = t.pin_memory()
             t = t.to(self._device, non_blocking=True)
-        staged.append(t)
+            staged.append((self._device, t))
         return t
+
+    def _stage_sharded(self, t: torch.Tensor, staged: List) -> Sharded:
+        if self._mesh_streams and not t.is_pinned():
+            t = t.pin_memory()
+        parts = []
+        for dev, (lo, hi) in zip(self._mesh, split_rows(len(t), self._mesh)):
+            part = t[lo:hi]
+            if self._mesh_streams:
+                with torch.cuda.stream(self._mesh_streams[dev]):
+                    part = part.to(dev, non_blocking=True)
+                staged.append((dev, part))
+            parts.append(part)
+        return Sharded(parts, self._mesh)
 
     def _stage_one(self, x, staged):
         if isinstance(x, TileBundle):
@@ -373,21 +407,26 @@ class Prefetcher:
         return x
 
     def _stage(self, item):
-        """``(item, event, staged tensors)``: the item with its arrays on
-        the device and, on the card, the copy stream's event after their
+        """``(item, events, staged)``: the item with its arrays on the
+        device (or the mesh) and, on the card, each copy stream's
+        ``(device, event)`` after its copies, and the ``(device, tensor)``
         copies (``torch.cuda.stream(None)`` is a no-op)."""
-        if self._device is None:
-            return item, None, ()
-        staged: List[torch.Tensor] = []
-        event = None
+        if self._device is None and self._mesh is None:
+            return item, (), ()
+        staged: List = []
         with torch.cuda.stream(self._stream):
             out = (tuple(self._stage_one(x, staged) for x in item)
                    if isinstance(item, tuple)
                    else self._stage_one(item, staged))
-            if self._stream is not None:
-                event = torch.cuda.Event()
-                event.record(self._stream)
-        return out, event, staged
+        streams = dict(self._mesh_streams)
+        if self._stream is not None:
+            streams[self._device] = self._stream
+        events = []
+        for dev, stream in streams.items():
+            event = torch.cuda.Event()
+            event.record(stream)
+            events.append((dev, event))
+        return out, events, staged
 
     def _put(self, item) -> bool:
         while not self._stop.is_set():
@@ -424,12 +463,13 @@ class Prefetcher:
                     err, self._error = self._error, None
                     raise err
                 raise StopIteration
-            item, event, staged = got
-            if event is not None:
-                consumer = torch.cuda.current_stream(self._device)
+            item, events, staged = got
+            for dev, event in events:
+                consumer = torch.cuda.current_stream(dev)
                 consumer.wait_event(event)
-                for t in staged:
-                    t.record_stream(consumer)
+                for d, t in staged:
+                    if d == dev:
+                        t.record_stream(consumer)
             return item
 
     def close(self):

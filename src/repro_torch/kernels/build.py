@@ -19,6 +19,8 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
+from collections import Counter
 from pathlib import Path
 
 import torch
@@ -91,13 +93,28 @@ class CudaKernel:
     """One C entry point of one library, with a count of its launches.
 
     ``launches`` goes up by one each time ``launch`` has put the kernel on
-    the stream, and nowhere else."""
+    a stream, and nowhere else; ``launches_by_device`` splits the same
+    count by CUDA device index.  Both are counted under a lock, so that
+    threads that launch at once lose no count."""
 
     def __init__(self, source: str, symbol: str, argtypes):
         self.source = source
         self.symbol = symbol
         self.argtypes = list(argtypes) + [ctypes.c_void_p]   # + stream
+        self._lock = threading.Lock()
         self.launches = 0
+        self.launches_by_device: Counter = Counter()
+
+    def count(self, index: int) -> None:
+        """One launch on device ``index``."""
+        with self._lock:
+            self.launches += 1
+            self.launches_by_device[index] += 1
+
+    def reset(self) -> None:
+        with self._lock:
+            self.launches = 0
+            self.launches_by_device = Counter()
 
     @functools.cached_property
     def _fn(self):
@@ -117,9 +134,9 @@ class CudaKernel:
         the call PyTorch's own generated kernels use: ``current_stream()``
         builds a Stream object each time, several microseconds a call."""
         fn, err = self._fn
-        index = torch.cuda.current_device() if device.index is None \
-            else device.index
-        if index == torch.cuda.current_device():
+        current = torch.cuda.current_device()
+        index = current if device.index is None else device.index
+        if index == current:
             rc = fn(*args, torch._C._cuda_getCurrentRawStream(index))
         else:
             with torch.cuda.device(index):
@@ -127,7 +144,7 @@ class CudaKernel:
         if rc != 0:
             raise RuntimeError(f"{self.symbol}: CUDA error {rc} "
                                f"({err(rc).decode()})")
-        self.launches += 1
+        self.count(index)
 
 
 def check_image(x: torch.Tensor, name: str) -> None:

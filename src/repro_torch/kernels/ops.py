@@ -37,9 +37,14 @@ def launch_counts() -> dict:
     return {name: k.launches for name, k in KERNELS.items()}
 
 
+def launch_counts_by_device() -> dict:
+    """{kernel name: {CUDA device index: launches so far}}."""
+    return {name: dict(k.launches_by_device) for name, k in KERNELS.items()}
+
+
 def reset_launch_counts() -> None:
     for k in KERNELS.values():
-        k.launches = 0
+        k.reset()
 
 
 def _as3d(img: torch.Tensor):

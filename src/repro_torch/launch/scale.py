@@ -11,11 +11,12 @@ Worker semantics: worker *i* of *W* owns the contiguous batch slice
 order; it streams only its slice (scenes outside it are never read),
 staging each batch onto the device through the `Prefetcher` (pinned
 memory, a copy stream), and extracts it with the same extractor.  The
-workers are simulated on one card: each worker's slice is executed and
-timed in turn, and t(W) is the slowest worker (the straggler defines the
-makespan, as in MapReduce).  The reference also shards each batch over a
-data mesh on a multi-device host; that branch waits for the port's
-multi-device slice.
+workers are simulated: each worker's slice is executed and timed in turn,
+and t(W) is the slowest worker (the straggler defines the makespan, as in
+MapReduce).  With ``mesh=`` (`distributed/sharding.py`; ``main`` takes
+``data_mesh()`` on a host with more than one card) each batch is also
+split over the mesh's cards: the prefetcher stages each card's rows
+straight to it, and the extractor runs each slice on its own card.
 
 Every sweep checks bit-parity: the per-batch results of every worker count
 must equal the single-worker reference array for array; scaling is a
@@ -43,12 +44,14 @@ import torch
 from repro_torch.configs.difet_paper import DifetConfig
 from repro_torch.core.bundle import TileBundle
 from repro_torch.core.engine import (extract_features_multi,
+                                     make_distributed_multi_extractor,
                                      normalize_algorithms, resolve_device)
 from repro_torch.data.landsat import (BandSceneReader,
                                       write_synthetic_scene_set)
 from repro_torch.data.pipeline import (Prefetcher, batch_slices,
                                        count_batches, iter_tile_batches,
                                        pinned_empty)
+from repro_torch.distributed.sharding import data_mesh, one_device
 
 
 PREFETCH_DEPTH = 2   # batches in flight: double buffering
@@ -67,15 +70,26 @@ def build_scene_set(root, n_scenes: int, scene_hw: Tuple[int, int]):
 
 
 def make_batch_extractor(algorithms, cfg: DifetConfig,
-                         use_kernels: bool = True, device=None):
+                         use_kernels: bool = True, device=None, mesh=None):
     """The per-worker batch extractor: ``fn(tiles, headers) -> {algorithm:
     result}`` over `extract_features_multi` on ``device`` (the CUDA card
-    unless ``device="cpu"``).  The reference's mesh-sharded variant waits
-    for the multi-device slice."""
+    unless ``device="cpu"``), or with ``mesh`` each batch split over the
+    mesh's devices (`make_distributed_multi_extractor`, results on the
+    mesh's first device, the same bits; a mesh of one entry takes the
+    one-device extractor on its device)."""
+    mesh, device = one_device(mesh, device)
+    if mesh is not None:
+        return make_distributed_multi_extractor(tuple(algorithms), cfg, mesh,
+                                                use_kernels)
     return functools.partial(extract_features_multi,
                              algorithms=tuple(algorithms), cfg=cfg,
                              use_kernels=use_kernels,
                              device=resolve_device(device))
+
+
+def _staging(device, mesh) -> dict:
+    """The prefetcher's staging target: the mesh when there is one."""
+    return dict(mesh=mesh) if mesh is not None else dict(device=device)
 
 
 def _alloc_for(device: torch.device):
@@ -86,16 +100,17 @@ def _alloc_for(device: torch.device):
 def run_worker(readers, cfg: DifetConfig, batch_tiles: int, fn,
                lo: int, hi: int, stripe_rows: Optional[int] = None,
                prefetch_depth: int = PREFETCH_DEPTH,
-               device=None) -> Tuple[Dict[int, Dict], float]:
+               device=None, mesh=None) -> Tuple[Dict[int, Dict], float]:
     """Execute one worker's contiguous batch slice ``[lo, hi)``.
 
     Streams the slice through the `Prefetcher` (tiling and the copy to
-    ``device`` overlap the extraction), runs ``fn`` per batch and brings
-    each result to the host (``.cpu().numpy()``, which also waits for the
-    device: the end of the timed window).  Returns ``({batch_index:
-    {algorithm: {key: numpy array}}}, wall_seconds)``.
+    ``device``, or to each of ``mesh``'s cards its rows, overlap the
+    extraction), runs ``fn`` per batch and brings each result to the host
+    (``.cpu().numpy()``, which also waits for the device: the end of the
+    timed window).  Returns ``({batch_index: {algorithm: {key: numpy
+    array}}}, wall_seconds)``.
     """
-    device = resolve_device(device)
+    device = mesh[0] if mesh is not None else resolve_device(device)
     results: Dict[int, Dict] = {}
     t0 = time.perf_counter()
     with Prefetcher(iter_tile_batches(readers, cfg, batch_tiles,
@@ -103,7 +118,7 @@ def run_worker(readers, cfg: DifetConfig, batch_tiles: int, fn,
                                       start=lo, stop=hi,
                                       alloc=_alloc_for(device)),
                     depth=prefetch_depth, device_put=True,
-                    device=device) as pf:
+                    **_staging(device, mesh)) as pf:
         for idx, bundle in pf:
             out = fn(bundle.tiles, bundle.headers)
             results[idx] = {alg: {k: v.cpu().numpy() for k, v in r.items()}
@@ -112,7 +127,7 @@ def run_worker(readers, cfg: DifetConfig, batch_tiles: int, fn,
 
 
 def _warm_up(fn, cfg: DifetConfig, batch_tiles: int,
-             device: torch.device) -> None:
+             device: torch.device, mesh=None) -> None:
     """Run ``fn`` on empty batches staged as `run_worker` stages them, as
     many as the prefetcher holds in flight: the kernels are built and
     loaded, and the pinned buffers exist, before any timed region."""
@@ -128,7 +143,7 @@ def _warm_up(fn, cfg: DifetConfig, batch_tiles: int,
             yield TileBundle(tiles, headers, cfg)
 
     with Prefetcher(empty_batches(), depth=PREFETCH_DEPTH, device_put=True,
-                    device=device) as pf:
+                    **_staging(device, mesh)) as pf:
         for bundle in pf:
             out = fn(bundle.tiles, bundle.headers)
             for r in out.values():
@@ -157,7 +172,7 @@ def run_scaling(readers, cfg: DifetConfig, algorithms,
                 workers: Sequence[int] = (1, 2, 4), batch_tiles: int = 8,
                 use_kernels: bool = True,
                 stripe_rows: Optional[int] = None, repeats: int = 1,
-                device=None):
+                device=None, mesh=None):
     """Sweep the worker count over a fixed scene set, one row per algorithm.
 
     For each algorithm: a warm-up on the same device and route (the first
@@ -171,10 +186,13 @@ def run_scaling(readers, cfg: DifetConfig, algorithms,
     ``t``/``speedup``/``efficiency`` per worker count, the grand total
     feature count, the per-batch counts (``batch_counts``) and ``parity``
     (True iff every worker count's results were bit-identical to the
-    reference's).
+    reference's).  With ``mesh`` every batch is split over the mesh's
+    devices (``device`` is then the mesh's first); a mesh of one entry runs
+    the one-device sweep on its device.
     """
     algorithms = normalize_algorithms(algorithms)
-    device = resolve_device(device)
+    mesh, device = one_device(mesh, device)
+    device = mesh[0] if mesh is not None else resolve_device(device)
     workers = tuple(workers)
     n_batches = count_batches([r.shape for r in readers], cfg, batch_tiles)
     if n_batches < max(workers):
@@ -183,8 +201,9 @@ def run_scaling(readers, cfg: DifetConfig, algorithms,
             f"grow the scene set or shrink --batch-tiles")
     rows = []
     for alg in algorithms:
-        fn = make_batch_extractor((alg,), cfg, use_kernels, device)
-        _warm_up(fn, cfg, batch_tiles, device)
+        fn = make_batch_extractor((alg,), cfg, use_kernels,
+                                  None if mesh else device, mesh)
+        _warm_up(fn, cfg, batch_tiles, device, mesh)
         times: Dict[int, float] = {}
         parity = True
         ref: Dict[int, Dict] = {}
@@ -196,7 +215,7 @@ def run_scaling(readers, cfg: DifetConfig, algorithms,
                 for lo, hi in batch_slices(n_batches, w):
                     res, wall = run_worker(readers, cfg, batch_tiles, fn,
                                            lo, hi, stripe_rows,
-                                           device=device)
+                                           device=device, mesh=mesh)
                     worker_results.update(res)
                     walls.append(wall)
                 best_walls = (walls if best_walls is None else
@@ -253,7 +272,8 @@ def main(argv=None):
                     default=True, help="CUDA kernels (their plain twins on "
                     "the CPU); --no-use-kernels takes the plain route")
     ap.add_argument("--device", default="cuda",
-                    help="torch device; 'cpu' runs without the card")
+                    help="torch device; 'cpu' runs without the card; "
+                    "'cuda' takes every card of the host, 'cuda:N' card N")
     ap.add_argument("--json", default=None,
                     help="also write the rows to this JSON path")
     ap.add_argument("--smoke", action="store_true",
@@ -270,6 +290,12 @@ def main(argv=None):
     except ValueError as e:
         ap.error(str(e))
     device = resolve_device(args.device)
+    # on a host with more than one card, --device cuda also splits the
+    # batches over a data mesh of every card; --device cuda:N names one card
+    # and runs the one-device sweep there
+    cards = (torch.cuda.device_count() if device.type == "cuda"
+             and torch.device(args.device).index is None else 0)
+    mesh = data_mesh() if cards > 1 else None
     cfg = DifetConfig(tile=args.tile, halo=args.halo,
                       max_keypoints_per_tile=128)
     readers = build_scene_set(
@@ -278,10 +304,11 @@ def main(argv=None):
     print(f"[scale] {len(readers)} scenes of {args.scene_size}^2, "
           f"tile={args.tile}, batch={args.batch_tiles}, "
           f"workers={workers}, algorithms={','.join(algorithms)}, "
-          f"device={device}")
+          f"device={device}, devices={mesh.size if mesh else 1}")
     rows = run_scaling(readers, cfg, algorithms, workers,
                        batch_tiles=args.batch_tiles,
-                       use_kernels=args.use_kernels, device=device)
+                       use_kernels=args.use_kernels,
+                       device=None if mesh else device, mesh=mesh)
     print_table(rows, workers)
     if args.json:
         Path(args.json).write_text(json.dumps(rows, indent=1, default=str))

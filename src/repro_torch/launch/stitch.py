@@ -7,7 +7,13 @@ registrations are checked against ground truth (``max_err``; sub-pixel on
 integer shifts).  Both phases are checkpointed ManifestJobs: kill the
 process at any point and the same command resumes.  Runs on the CUDA card
 through the kernels unless told otherwise (``--device cpu``,
-``--no-use-kernels``).
+``--no-use-kernels``).  ``--mesh host`` (the default, as the reference's)
+splits each chunk of the match phase over every card of the host
+(`launch/mesh.py::make_host_mesh`; the CPU's one device with ``--device
+cpu``; a host of one card registers on it as ``--mesh none`` does);
+``--mesh none`` registers on ``--device`` alone, which is the only mesh
+setting that takes an indexed ``--device cuda:N``.  Either gives the same
+pair results.
 
     PYTHONPATH=src python -m repro_torch.launch.stitch --scenes 4 \\
         --scene-size 2048 --overlap 512 --tile 512 --max-keypoints 512 \\
@@ -26,6 +32,7 @@ from repro_torch.core import mosaic
 from repro_torch.core.bundle import BundleStore, bundle_scenes
 from repro_torch.core.job import DifetJob
 from repro_torch.data.landsat import synthetic_scene
+from repro_torch.launch.mesh import make_host_mesh
 
 DESCRIPTOR_ALGORITHMS = ("sift", "surf", "brief", "orb")
 
@@ -116,10 +123,17 @@ def main(argv=None, *, device=None):
                     "the CPU); --no-use-kernels takes the plain route")
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' runs without the card")
+    ap.add_argument("--mesh", default="host", choices=("host", "none"),
+                    help="split the match phase's pair batches over every "
+                    "card of the host (the CPU with --device cpu)")
     ap.add_argument("--fail-after", type=int, default=None,
                     help="simulate worker failure after N match chunks")
     args = ap.parse_args(argv)
     device = args.device if device is None else device
+    try:
+        mesh = make_host_mesh(device) if args.mesh == "host" else None
+    except ValueError as e:
+        ap.error(f"{e}: pass --mesh none")
 
     # lower FAST threshold than the extraction default: registration wants
     # many verifiable corners, not just the strongest (Table-2) ones
@@ -146,7 +160,8 @@ def main(argv=None, *, device=None):
     phase = mosaic.MatchPhase(
         store, pairs, args.algorithm, ratio=args.ratio, tol=args.tol,
         iters=args.iters, pairs_per_step=args.pairs_per_step,
-        use_kernels=args.use_kernels, device=device)
+        use_kernels=args.use_kernels, device=None if mesh else device,
+        mesh=mesh)
     try:
         phase.run(simulate_failure_after=args.fail_after,
                   progress=lambda n: print(f"  matched {n}", flush=True))
