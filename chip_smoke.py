@@ -151,12 +151,35 @@ Run from the root of a checkout, with no arguments: ``python3 chip_smoke.py``.
    just before each) and the profiler's device index showing every kernel
    of each path on the card; times the scene and tile 256 with the slices
    staged in advance, beside the one-device runs.
-10. Prints the kernels JSON line (with ``launch_weighted_ms`` and
+10. Phase 3g, the LM substrate's serving path (``models/``,
+   ``serve/lm.py``; no kernel of its own): every registered architecture
+   at full width in bf16, weights from a seeded generator on the card,
+   full depth but for qwen1.5-110b and dbrx-132b (2 layers) and
+   deepseek-v3-671b (4: its 3 dense layers and 1 MoE layer of 256
+   experts), each freed before the next: ``prefill`` of 4 x 512 tokens
+   (+ 256 patches, or 1500 frames), its last logits against ``forward``'s
+   (rtol/atol 1e-3); a 16-token teacher-forced ``decode_step`` run against
+   ``forward`` at every position within the reference's rtol 0.05 / atol
+   0.15 (MoE at no-drop capacity, positions the two runs routed apart
+   reported; xlstm-350m and zamba2-2.7b held in a float32 run at full
+   width instead, see ``LM_F32_DECODE``); ``greedy_generate`` of 4 x (16 +
+   32) twice, bitwise equal; every logit finite; times prefill, a decode
+   step with 48 and 512 cache slots (CUDA events) and greedy tokens/s,
+   with weight and peak GiB.  Then every arch's ``reduced()`` config in
+   float32 with one set of weights on the CPU and the card: logits within
+   rtol/atol 1e-4, greedy tokens equal wherever the CPU's top-two gap
+   exceeds 1e-3; and smollm-135m at S 4096 (B 1), whose prefill must take
+   the online attention in all 30 layers, with ``attention_online`` held
+   to ``attention_einsum`` within 2e-3 (float32 inputs) and both timed in
+   bf16 beside ``F.scaled_dot_product_attention`` (a yardstick, not on
+   the path).  The matmul flags are printed as found.
+11. Prints the kernels JSON line (with ``launch_weighted_ms`` and
    ``launch_weighted_bound_ms`` per kernel: the sum over the kernel's
    launches on its path of each one's measured time and its bound, and for
    the extraction kernels ``served_launches_per_replay`` by bucket), a
    ``serve`` line of phase 3d's figures, a ``fleet`` line of phase 3e's,
-   the card's name and power
+   a ``mesh`` line of phase 3f's, an ``lm`` line of phase 3g's, the card's
+   name and power
    limit, and last ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --mesh-cards N`` runs alone, on a host with N
@@ -247,6 +270,28 @@ FLEET_SMOKES = (                     # the reference's own gates
 # job's bundle (the scene's first tiles: 4 shards of 13, 13, 12, 12)
 MESH_REPEAT = 4
 MESH_JOB_TILES = 50
+# phase 3g, the LM substrate's serving path: every registered arch at full
+# width in bf16; depth cut only where one card cannot hold the model, to
+# the fewest layers that keep every kind of block
+LM_DEPTH_CUTS = {"qwen1.5-110b": 2, "dbrx-132b": 2,
+                 "deepseek-v3-671b": 4}      # 3 dense layers + 1 MoE layer
+LM_BATCH, LM_PROMPT = 4, 512        # prefill B x S (+ patches / frames)
+LM_TEACHER = 16                     # teacher-forced decode steps
+LM_GREEDY = (16, 32)                # greedy prompt, new tokens
+LM_CACHE_SLOTS = (48, 512)          # init_cache sizes of the decode timing
+LM_DECODE_TOL = dict(rtol=0.05, atol=0.15)   # the reference's decode gate
+LM_EXACT_TOL = dict(rtol=1e-4, atol=1e-4)    # card against CPU, float32
+LM_TIE_GAP = 1e-3                   # greedy tokens held above this gap
+# the recurrent archs' decode and forward forms round apart, as the
+# reference's do (its Mamba2 decode convolves in float32 where the forward
+# does in bf16, src/repro/models/ssm.py:134,153; its mLSTM decode keeps the
+# conv window in bf16 even in float32, :300,335), and the rounding grows
+# over 24-54 layers: at full width in bf16 their decode misses
+# LM_DECODE_TOL, so the bf16 difference is printed and the leading
+# positions given here are held in a float32 run at full width instead:
+# Zamba's all; xLSTM's first (from the second token its window is bf16)
+LM_F32_DECODE = {"xlstm-350m": 1, "zamba2-2.7b": LM_TEACHER}
+LM_LONG = ("smollm-135m", 4096)     # = ONLINE_ATTN_MIN_SEQ, B 1
 # device kernel names of each wrapper's kernels (the profiler's keys)
 DEVICE_NAMES = {"harris": ("harris_kernel",), "fast": ("fast_tiled",),
                 "blur": ("blur_tiled", "blur_small"),
@@ -1725,6 +1770,366 @@ def mesh_table1(torch, dev, meshes, cfg):
                           for alg, c in counts["one_device"].items()}
 
 
+def lm_batch(torch, cfg, b, s, gen, dev, dtype):
+    """Random tokens (and the VLM's patches, Whisper's frames) on ``dev``."""
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s),
+                                     generator=gen, device=dev)}
+    if cfg.n_image_patches:
+        batch["patches"] = torch.randn(b, cfg.n_image_patches, cfg.d_model,
+                                       generator=gen, device=dev).to(dtype)
+    if cfg.is_enc_dec:
+        batch["frames"] = torch.randn(b, cfg.encoder_seq_len, cfg.d_model,
+                                      generator=gen, device=dev).to(dtype)
+    return batch
+
+
+def max_abs(a, b):
+    return float((a.float() - b.float()).abs().max())
+
+
+def lm_require_close(torch, got, want, tol, what):
+    require(bool(torch.isfinite(got).all()) and
+            bool(torch.isfinite(want).all()), f"{what}: logits not finite")
+    require(torch.allclose(got.float(), want.float(), **tol),
+            f"{what}: max abs difference {max_abs(got, want):.4g} outside "
+            f"rtol {tol['rtol']} / atol {tol['atol']}")
+
+
+class NoDropRoutes:
+    """Within the block: every MoE layer runs at no-drop capacity (a
+    factor of n_experts / k, so C >= the tokens routed), and each routing
+    records its tokens' expert ids.  Restores the configs and
+    ``moe.route`` on exit."""
+
+    def __init__(self, torch, model):
+        import dataclasses
+
+        from repro_torch.models import moe as M
+        self.M, self.ids = M, []
+        self.layers = [m for m in model.modules() if isinstance(m, M.MoE)]
+        self.saved = [m.cfg for m in self.layers]
+        for m in self.layers:
+            moe = m.cfg.moe
+            m.cfg = m.cfg.replace(moe=dataclasses.replace(
+                moe, capacity_factor=moe.n_experts / moe.n_experts_per_tok))
+
+    def __enter__(self):
+        route = self.route = self.M.route
+
+        def recording(p, c, x):
+            out = route(p, c, x)
+            self.ids.append(out[1].sort(-1).values)
+            return out
+
+        self.M.route = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.M.route = self.route
+        for m, cfg in zip(self.layers, self.saved):
+            m.cfg = cfg
+
+
+def lm_teacher_forced(torch, model, cfg, batch, steps, hold=None):
+    """The forward's logits over the first ``steps`` tokens against
+    ``steps`` decode steps from an empty cache, position by position (the
+    VLM without its image: decode takes none).  The MoE archs run at
+    no-drop capacity (decode never drops: 8 slots an expert for B tokens),
+    and a position that the two runs routed to other experts in some layer
+    (bf16 rounding that differs between the runs flips a near tie) is
+    reported and not held; only the first ``hold`` positions are held when
+    it is given.  Returns (max abs difference over the held positions, the
+    flipped positions, the pairs the forward would drop at the configured
+    capacity)."""
+    b = batch["tokens"].shape[0]
+    sub = dict(batch, tokens=batch["tokens"][:, :steps])
+    if cfg.n_image_patches:
+        sub["patches"] = batch["patches"][:, :0]
+    with NoDropRoutes(torch, model) as fwd, torch.inference_mode():
+        full, _ = model(sub)
+    cache = model.init_cache(b, steps)
+    if cfg.is_enc_dec:
+        _, cross = model.prefill(sub)
+        cache["xk"].copy_(cross["xk"])
+        cache["xv"].copy_(cross["xv"])
+    step_logits, step_ids = [], []
+    for i in range(steps):
+        with NoDropRoutes(torch, model) as dec:
+            logits, cache = model.decode_step(
+                cache, sub["tokens"][:, i:i + 1], i)
+        step_logits.append(logits[:, 0])
+        step_ids.append(dec.ids)
+    got = torch.stack(step_logits, 1)
+    held = torch.ones((b, steps), dtype=torch.bool, device=got.device)
+    dropped = 0
+    for layer, ids in enumerate(fwd.ids):         # [B*steps, k] per layer
+        ids = ids.view(b, steps, -1)
+        dec_ids = torch.stack([s[layer] for s in step_ids], 1)
+        held &= (ids == dec_ids).all(-1)
+        moe = cfg.moe
+        dropped += int((~fwd.M.dispatch(ids.view(b * steps, -1),
+                                        moe.n_experts,
+                                        fwd.M.capacity(cfg, b * steps))[4]
+                        ).sum())
+    require(held.float().mean() >= 0.5, f"teacher-forced decode: "
+            f"{int((~held).sum())} of {held.numel()} positions were routed "
+            f"apart")
+    require(bool(torch.isfinite(got).all() and torch.isfinite(full).all()),
+            "teacher-forced decode: logits not finite")
+    flipped = [tuple(map(int, ij)) for ij in torch.nonzero(~held)]
+    if hold is not None:
+        held[:, hold:] = False
+    if held.any():
+        lm_require_close(torch, got[held], full[held], LM_DECODE_TOL,
+                         f"{steps}-token teacher-forced decode against "
+                         f"forward")
+    return max_abs(got[held], full[held]) if held.any() else None, \
+        max_abs(got, full), flipped, dropped
+
+
+def lm_card_against_cpu(torch, np, arch, dev):
+    """``arch``'s reduced config in float32, the same weights (drawn on the
+    CPU, copied to the card): forward logits within LM_EXACT_TOL, and 8
+    prompt + 8 greedy steps teacher-forced on the CPU's tokens, each step's
+    logits within LM_EXACT_TOL and its token equal wherever the CPU's
+    top-two gap exceeds LM_TIE_GAP.  Returns the near ties (step, row)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = get_config(arch).reduced().replace(dtype="float32",
+                                             remat="nothing")
+    cpu = build_model(cfg, device="cpu").init(
+        torch.Generator().manual_seed(11))
+    card = build_model(cfg, device=dev)
+    card.load_state_dict(cpu.state_dict())
+    batch = lm_batch(torch, cfg, 2, 32, torch.Generator().manual_seed(12),
+                     "cpu", torch.float32)
+    with torch.inference_mode():
+        want, _ = cpu(batch)
+        got, _ = card({k: v.to(dev) for k, v in batch.items()})
+    lm_require_close(torch, got.cpu(), want, LM_EXACT_TOL,
+                     f"{arch} reduced float32 forward, card against CPU")
+    caches = [m.init_cache(2, 16) for m in (cpu, card)]
+    if cfg.is_enc_dec:
+        for m, c in zip((cpu, card), caches):
+            sub = {k: v.to(m.device) for k, v in batch.items()}
+            _, cross = m.prefill(sub)
+            c["xk"].copy_(cross["xk"])
+            c["xv"].copy_(cross["xv"])
+    fed = batch["tokens"][:, :8]
+    near = []
+    for i in range(16):
+        tok = fed[:, i:i + 1]
+        want, caches[0] = cpu.decode_step(caches[0], tok, i)
+        got, caches[1] = card.decode_step(caches[1], tok.to(dev), i)
+        lm_require_close(torch, got.cpu(), want, LM_EXACT_TOL,
+                         f"{arch} reduced float32 decode step {i}, card "
+                         f"against CPU")
+        top2 = want[:, -1].topk(2).values
+        sure = (top2[:, 0] - top2[:, 1]) > LM_TIE_GAP
+        nxt = want[:, -1].argmax(-1)
+        require(torch.equal(got[:, -1].cpu().argmax(-1)[sure], nxt[sure]),
+                f"{arch}: greedy token of step {i} differs, card against CPU")
+        near += [(i, int(r)) for r in torch.nonzero(~sure).flatten()]
+        if i >= 7:
+            fed = torch.cat([fed, nxt[:, None]], 1)
+    del cpu, card
+    return near
+
+
+def lm_phase(torch, np):
+    """Phase 3g: the LM substrate's serving path (``repro_torch.models``,
+    ``serve/lm.py``) on the card.  Returns the phase's figures."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.models import attention as A
+    from repro_torch.models import build_model
+    from repro_torch.models.model import param_count
+    from repro_torch.serve.lm import greedy_generate
+    dev = torch.device("cuda", torch.cuda.current_device())
+    flags = {"allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+             "allow_bf16_reduced_precision_reduction":
+                 torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}
+    log(f"phase 3g: the LM serving path, bf16 at full width, B {LM_BATCH}; "
+        f"matmul flags as found: {flags}")
+    figures = {"flags": flags, "archs": {}}
+    for seed, arch in enumerate(sorted(ARCH_IDS)):
+        cfg = get_config(arch)
+        full_layers = cfg.n_layers
+        if arch in LM_DEPTH_CUTS:
+            cfg = cfg.replace(n_layers=LM_DEPTH_CUTS[arch])
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = build_model(cfg).init(
+            torch.Generator(device=dev).manual_seed(seed))
+        gen = torch.Generator(device=dev).manual_seed(100 + seed)
+        batch = lm_batch(torch, cfg, LM_BATCH, LM_PROMPT, gen, dev,
+                         torch.bfloat16)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        weight_gib = sum(p.numel() * p.element_size()
+                         for p in model.parameters()) / 2 ** 30
+        # prefill against forward
+        logits_pre, _ = model.prefill(batch)
+        with torch.inference_mode():
+            logits_fwd, _ = model(batch)
+        lm_require_close(torch, logits_pre[:, 0], logits_fwd[:, -1],
+                         dict(rtol=1e-3, atol=1e-3),
+                         f"{arch}: prefill's last logits against forward's")
+        pre_diff = max_abs(logits_pre[:, 0], logits_fwd[:, -1])
+        del logits_fwd
+        prefill_ms = cuda_ms(lambda: model.prefill(batch), reps=3, warmup=1)
+        # teacher-forced decode against forward over the same tokens
+        dec_diff, dec_all, dec_near, dropped = lm_teacher_forced(
+            torch, model, cfg, batch, LM_TEACHER,
+            hold=0 if arch in LM_F32_DECODE else None)
+        # greedy generation, twice, bitwise
+        prompt = batch["tokens"][:, :LM_GREEDY[0]]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out1 = greedy_generate(model, prompt, LM_GREEDY[1])
+        torch.cuda.synchronize()
+        greedy_s = time.perf_counter() - t1
+        out2 = greedy_generate(model, prompt, LM_GREEDY[1])
+        require(torch.equal(out1, out2), f"{arch}: two greedy runs differ")
+        require(tuple(out1.shape) == (LM_BATCH, LM_GREEDY[1]),
+                f"{arch}: greedy output shape {tuple(out1.shape)}")
+        # a decode step's time by the cache's size (every slot is read)
+        step_ms = {}
+        tok = prompt[:, :1]
+        for slots in LM_CACHE_SLOTS:
+            cache = model.init_cache(LM_BATCH, slots)
+            logits, _ = model.decode_step(cache, tok, LM_TEACHER)
+            require(bool(torch.isfinite(logits).all()),
+                    f"{arch}: decode logits not finite at {slots} slots")
+            step_ms[slots] = cuda_ms(
+                lambda: model.decode_step(cache, tok, LM_TEACHER))
+            del cache
+        peak_gib = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        row = dict(n_layers=cfg.n_layers, full_layers=full_layers,
+                   depth_cut=arch in LM_DEPTH_CUTS,
+                   params=param_count(model), weight_gib=weight_gib,
+                   peak_gib=peak_gib, init_s=init_s, prefill_ms=prefill_ms,
+                   decode_ms={str(k): v for k, v in step_ms.items()},
+                   greedy_s=greedy_s,
+                   greedy_tok_s=LM_BATCH * LM_GREEDY[1] / greedy_s,
+                   prefill_vs_forward_max_abs=pre_diff,
+                   decode_vs_forward_max_abs=dec_diff,
+                   decode_vs_forward_max_abs_all=dec_all,
+                   decode_routed_apart=dec_near, forward_drops=dropped)
+        figures["archs"][arch] = row
+        cut = (f"depth cut {full_layers} -> {cfg.n_layers} layers"
+               if arch in LM_DEPTH_CUTS else f"full depth {cfg.n_layers}")
+        log(f"  {arch:17s} {cut}; {weight_gib:.2f} GiB of weights, peak "
+            f"{peak_gib:.2f} GiB; prefill {LM_BATCH}x{LM_PROMPT} "
+            f"{prefill_ms:.2f} ms (max abs to forward {pre_diff:.3g}); "
+            f"decode step {step_ms[LM_CACHE_SLOTS[0]]:.2f} ms at "
+            f"{LM_CACHE_SLOTS[0]} slots, {step_ms[LM_CACHE_SLOTS[1]]:.2f} ms "
+            f"at {LM_CACHE_SLOTS[1]}; teacher-forced decode max abs "
+            + (f"{dec_all:.3g} (not held in bf16, see the float32 run)"
+               if arch in LM_F32_DECODE else
+               f"{dec_diff:.3g} at every position")
+            + (f" but those routed apart {dec_near} (MoE at no-drop "
+               f"capacity; the configured one would drop {dropped} pairs)"
+               if cfg.moe is not None else "") + f"; greedy {LM_GREEDY[0]}+{LM_GREEDY[1]} "
+            f"{greedy_s:.2f} s ({row['greedy_tok_s']:.1f} new tokens/s), "
+            f"two runs bitwise")
+        del model, batch, logits_pre, out1, out2, prompt, tok
+        if arch in LM_F32_DECODE:
+            torch.cuda.empty_cache()
+            f32 = build_model(cfg.replace(dtype="float32")).init(
+                torch.Generator(device=dev).manual_seed(seed))
+            batch = lm_batch(torch, cfg, LM_BATCH, LM_TEACHER,
+                             torch.Generator(device=dev).manual_seed(
+                                 100 + seed), dev, torch.float32)
+            held_diff, all_diff, _, _ = lm_teacher_forced(
+                torch, f32, cfg, batch, LM_TEACHER,
+                hold=LM_F32_DECODE[arch])
+            row["decode_f32"] = dict(held_positions=LM_F32_DECODE[arch],
+                                     max_abs_held=held_diff,
+                                     max_abs_all=all_diff)
+            log(f"  {arch:17s} float32 at full width: teacher-forced decode "
+                f"against forward max abs {held_diff:.3g} over the first "
+                f"{LM_F32_DECODE[arch]} positions (held), {all_diff:.3g} "
+                f"over all {LM_TEACHER}")
+            del f32, batch
+    torch.cuda.empty_cache()
+
+    # the card against the CPU: reduced configs, float32, the same weights
+    near = {}
+    for arch in sorted(ARCH_IDS):
+        near[arch] = lm_card_against_cpu(torch, np, arch, dev)
+    figures["card_vs_cpu_near_ties"] = near
+    log(f"  card = CPU in float32 on every arch's reduced config (logits "
+        f"within rtol/atol 1e-4, greedy tokens equal above a gap of "
+        f"{LM_TIE_GAP}); near ties (step, row): {near}")
+
+    # long context at full width: the online path inside the model
+    arch, s_long = LM_LONG
+    cfg = get_config(arch)
+    model = build_model(cfg).init(torch.Generator(device=dev).manual_seed(7))
+    gen = torch.Generator(device=dev).manual_seed(8)
+    batch = lm_batch(torch, cfg, 1, s_long, gen, dev, torch.bfloat16)
+    online_calls = [0]
+    online = A.attention_online
+
+    def counting(*args, **kw):
+        online_calls[0] += 1
+        return online(*args, **kw)
+
+    A.attention_online = counting
+    try:
+        logits, _ = model.prefill(batch)
+    finally:
+        A.attention_online = online
+    require(online_calls[0] == cfg.n_layers,
+            f"the S {s_long} prefill took the online path in "
+            f"{online_calls[0]} of {cfg.n_layers} layers")
+    require(bool(torch.isfinite(logits).all()), "long prefill not finite")
+    long_ms = cuda_ms(lambda: model.prefill(batch), reps=3, warmup=1)
+    del model, batch, logits
+    # the two algorithms held on float32 inputs (in bf16 each rounds its
+    # output, and einsum its probabilities, to a bf16 ulp of 2^-7 at 1),
+    # then timed on the path's bf16
+    hd = cfg.resolved_head_dim
+    qf, kf, vf = (torch.randn(1, s_long, cfg.n_heads, hd, generator=gen,
+                              device=dev) for _ in range(3))
+    online_diff = max_abs(A.attention_online(qf, kf, vf, causal=True),
+                          A.attention_einsum(qf, kf, vf, causal=True))
+    require(online_diff <= 2e-3, f"attention_online against attention_einsum "
+            f"at S {s_long}, float32: max abs {online_diff:.4g} > 2e-3")
+    q, k, v = (x.to(torch.bfloat16) for x in (qf, kf, vf))
+    del qf, kf, vf
+    ein = A.attention_einsum(q, k, v, causal=True)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    sdpa_diff = max_abs(sdpa.transpose(1, 2), ein)
+    long = dict(arch=arch, seq=s_long, prefill_ms=long_ms,
+                online_layers=online_calls[0], online_vs_einsum=online_diff,
+                online_ms=cuda_ms(lambda: A.attention_online(
+                    q, k, v, causal=True)),
+                einsum_ms=cuda_ms(lambda: A.attention_einsum(
+                    q, k, v, causal=True)),
+                sdpa_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True)),
+                sdpa_vs_einsum=sdpa_diff)
+    figures["long"] = long
+    log(f"  long context: {arch} prefill B 1 x S {s_long} {long_ms:.2f} ms "
+        f"(the online path in all {cfg.n_layers} layers); attention "
+        f"[1,{s_long},{cfg.n_heads},{hd}] causal: online = einsum within "
+        f"{online_diff:.3g} (float32 inputs); bf16 online "
+        f"{long['online_ms']:.3f} ms, einsum {long['einsum_ms']:.3f} ms, "
+        f"F.scaled_dot_product_attention "
+        f"{long['sdpa_ms']:.3f} ms (the library yardstick, not on the path; "
+        f"max abs to einsum {sdpa_diff:.3g})")
+    del q, k, v, qt, kt, vt, ein, sdpa
+    torch.cuda.empty_cache()
+    return figures
+
+
 def mesh_cards_main(n_cards: int) -> int:
     """``--mesh-cards N``: the build, the data mesh on ``data_mesh(m)`` for
     m in 1, 2, 4 up to N (`mesh_phase`), Table 1 per card count
@@ -2520,6 +2925,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_done("3f (data mesh)")
 
+    # ---- 3g. the LM substrate's serving path ---------------------------------
+    lm_figures = lm_phase(torch, np)
+    phase_done("3g (LM serving path)")
+
     # ---- 4. timings ---------------------------------------------------------
     log("timings (median of %d, CUDA events around one call; [device time "
         "per call under torch.profiler]):" % REPS)
@@ -2858,6 +3267,7 @@ def main() -> int:
                                if k != "per_replay"}))
     log("fleet " + json.dumps(fleet_figures))
     log("mesh " + json.dumps(mesh_figures))
+    log("lm " + json.dumps(lm_figures))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)

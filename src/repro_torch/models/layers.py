@@ -1,0 +1,238 @@
+"""Primitive layers: norms, projections, RoPE, MLPs, embeddings (port of
+``repro.models.layers``).
+
+Weights keep the reference's layouts (``[in, out]`` projections, ``[vocab,
+d]`` tables), so the reference's parameters carry across unchanged
+(``convert.lm_params_from_reference``).  Compute runs in the config dtype
+with fp32 accumulation on every matmul, rounded once to the activation
+dtype; norms, softmax and logits run in fp32.  On the card a bf16 GEMM
+accumulates in fp32 and rounds once, as the reference's
+``preferred_element_type`` does; on the CPU both operands are upcast.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+INIT_SLAB = 1 << 26        # elements drawn at once by ``fill_``
+
+
+# ---------------------------------------------------------------------------
+# parameters with the reference's init rules
+# ---------------------------------------------------------------------------
+class Module(nn.Module):
+    """An ``nn.Module`` whose parameters carry the reference's init rule:
+    a float (a normal truncated to [-2, 2] times that scale), ``"ones"``,
+    ``"zeros"`` or a numpy array.  Parameters are allocated empty on the
+    module's device; ``init(generator)`` fills every one of them."""
+
+    def __init__(self):
+        super().__init__()
+        self._rules = {}
+
+    def param(self, name, shape, dtype, device, rule):
+        p = nn.Parameter(torch.empty(shape, dtype=dtype, device=device))
+        self.register_parameter(name, p)
+        self._rules[name] = rule
+        return p
+
+    def dense(self, name, d_in, d_out, dtype, device):
+        """A fan-in scaled ``[d_in, d_out]`` projection (``dense_init``)."""
+        return self.param(name, (d_in, d_out), dtype, device,
+                          1.0 / np.sqrt(d_in))
+
+    def init(self, generator: torch.Generator):
+        """Fill every parameter of this module and its children from
+        ``generator`` (on the parameters' device); returns ``self``."""
+        with torch.no_grad():
+            for m in self.modules():
+                for name, rule in getattr(m, "_rules", {}).items():
+                    fill_(getattr(m, name), rule, generator)
+        return self
+
+
+def fill_(t: torch.Tensor, rule, generator: torch.Generator):
+    if isinstance(rule, str):
+        t.fill_(1.0 if rule == "ones" else 0.0)
+    elif isinstance(rule, np.ndarray):
+        t.copy_(torch.from_numpy(rule))
+    else:
+        # the reference draws in float32 and rounds to the weight's dtype;
+        # draw slabs along dim 0 so a large bf16 weight needs no fp32 twin
+        rows = t.view(t.shape[0], -1) if t.dim() > 1 else t.view(1, -1)
+        step = max(1, INIT_SLAB // max(rows.shape[1], 1))
+        for i in range(0, rows.shape[0], step):
+            blk = torch.empty(rows[i:i + step].shape, dtype=torch.float32,
+                              device=t.device)
+            nn.init.trunc_normal_(blk, 0.0, 1.0, -2.0, 2.0,
+                                  generator=generator)
+            rows[i:i + step].copy_(blk * float(rule))
+
+
+# ---------------------------------------------------------------------------
+# matmuls
+# ---------------------------------------------------------------------------
+def matmul(x, w):
+    """x @ w with fp32 accumulation, result in x.dtype."""
+    if x.dtype == w.dtype and (x.dtype == torch.float32 or x.is_cuda):
+        return x @ w
+    return (x.float() @ w.float()).to(x.dtype)
+
+
+def matmul_f32(x, w):
+    """x [..., d] @ w [d, f] with fp32 products and accumulation and an fp32
+    result (the reference's ``preferred_element_type=float32`` without the
+    cast back).  On the card a bf16 GEMM writes fp32 (``out_dtype``) so that
+    no weight is upcast."""
+    if x.dtype == torch.float32 and w.dtype == torch.float32:
+        return x @ w
+    if x.is_cuda and x.dtype == w.dtype:
+        out = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
+        return out.reshape(*x.shape[:-1], w.shape[-1])
+    return x.float() @ w.float()
+
+
+def bmatmul(a, b):
+    """Batched a @ b with fp32 accumulation, result in a.dtype."""
+    if a.dtype == b.dtype and (a.dtype == torch.float32 or a.is_cuda):
+        return torch.bmm(a, b)
+    return torch.bmm(a.float(), b.float()).to(a.dtype)
+
+
+def bmatmul_f32(a, b):
+    """Batched a @ b with an fp32 result (``bmm`` with ``out_dtype`` on the
+    card)."""
+    if a.dtype == torch.float32 and b.dtype == torch.float32:
+        return torch.bmm(a, b)
+    if a.is_cuda and a.dtype == b.dtype:
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.float(), b.float())
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+def rmsnorm(x, scale, eps=1e-5):
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * scale).to(x.dtype)
+
+
+def layernorm(x, scale, bias, eps=1e-5):
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, correction=0)   # jnp.var: population
+    return ((xf - mu) * torch.rsqrt(var + eps) * scale + bias).to(x.dtype)
+
+
+class RMSNorm(Module):
+    def __init__(self, d, device=None):
+        super().__init__()
+        self.param("scale", (d,), torch.float32, device, "ones")
+
+    def forward(self, x, eps=1e-5):
+        return rmsnorm(x, self.scale, eps)
+
+
+class LayerNorm(Module):
+    def __init__(self, d, device=None):
+        super().__init__()
+        self.param("scale", (d,), torch.float32, device, "ones")
+        self.param("bias", (d,), torch.float32, device, "zeros")
+
+    def forward(self, x, eps=1e-5):
+        return layernorm(x, self.scale, self.bias, eps)
+
+
+# ---------------------------------------------------------------------------
+# rotary position embeddings
+# ---------------------------------------------------------------------------
+def rope_freqs(head_dim, theta):
+    exponent = np.arange(0, head_dim, 2, dtype=np.float32) / head_dim
+    return 1.0 / (theta ** exponent)          # [head_dim//2]
+
+
+def apply_rope(x, positions, theta):
+    """x: [..., S, H, hd] (hd even); positions: broadcastable to [..., S]."""
+    hd = x.shape[-1]
+    freqs = torch.from_numpy(np.asarray(rope_freqs(hd, theta),
+                                        np.float32)).to(x.device)
+    angles = positions[..., :, None].float() * freqs       # [..., S, hd//2]
+    angles = angles[..., None, :]                           # [..., S, 1, hd//2]
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def sinusoidal_positions(seq_len, d_model, device=None):
+    """Whisper-style fixed sinusoidal embedding table [seq_len, d_model]."""
+    pos = np.arange(seq_len, dtype=np.float32)[:, None]
+    dim = np.arange(0, d_model, 2, dtype=np.float32)[None, :]
+    inv = np.exp(-np.log(10000.0) * dim / d_model)
+    tab = np.zeros((seq_len, d_model), np.float32)
+    tab[:, 0::2] = np.sin(pos * inv)
+    tab[:, 1::2] = np.cos(pos * inv)
+    return torch.from_numpy(tab).to(device)
+
+
+# ---------------------------------------------------------------------------
+# MLPs
+# ---------------------------------------------------------------------------
+class SwiGLU(Module):
+    def __init__(self, d_model, d_ff, dtype, device=None):
+        super().__init__()
+        self.dense("wi", d_model, d_ff, dtype, device)     # gate
+        self.dense("wu", d_model, d_ff, dtype, device)     # up
+        self.dense("wo", d_ff, d_model, dtype, device)
+
+    def forward(self, x):
+        return swiglu(self, x)
+
+
+def swiglu(p, x):
+    g = matmul(x, p.wi)
+    u = matmul(x, p.wu)
+    return matmul(F.silu(g.float()).to(x.dtype) * u, p.wo)
+
+
+class GeluMLP(Module):
+    def __init__(self, d_model, d_ff, dtype, device=None):
+        super().__init__()
+        self.dense("wi", d_model, d_ff, dtype, device)
+        self.param("bi", (d_ff,), dtype, device, "zeros")
+        self.dense("wo", d_ff, d_model, dtype, device)
+        self.param("bo", (d_model,), dtype, device, "zeros")
+
+    def forward(self, x):
+        return gelu_mlp(self, x)
+
+
+def gelu_mlp(p, x):
+    h = matmul(x, p.wi) + p.bi
+    # jax.nn.gelu's default is the tanh form, not torch's erf default
+    h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
+    return matmul(h, p.wo) + p.bo
+
+
+# ---------------------------------------------------------------------------
+# embeddings / heads
+# ---------------------------------------------------------------------------
+class Table(Module):
+    """A ``[vocab, d]`` table ``w``: the embedding (scale 0.02) or an untied
+    head (scale 1/sqrt(d))."""
+
+    def __init__(self, vocab, d_model, dtype, device=None, scale=0.02):
+        super().__init__()
+        self.param("w", (vocab, d_model), dtype, device, scale)
+
+
+def embed(p, tokens):
+    return F.embedding(tokens, p.w)
+
+
+def unembed(p, h):
+    """h: [..., d] -> logits [..., vocab] in fp32."""
+    return matmul_f32(h, p.w.t())

@@ -1,0 +1,387 @@
+"""Model facades (port of ``repro.models.model``): one ``nn.Module`` per
+architecture family, with the reference's method names
+
+    init(generator) -> the model, every weight drawn from ``generator``
+    loss(batch) -> (scalar, metrics)                 [forward only]
+    forward(batch) -> (logits, aux)
+    prefill(batch) -> (last logits, cache)           [inference prefill]
+    init_cache(batch_size, max_seq) -> cache (a dict of tensors)
+    decode_step(cache, tokens, pos) -> (logits, cache)
+
+A batch is a dict of tensors on the model's device (``tokens`` [B,S] int,
+``patches`` [B,P,D] for the VLM, ``frames`` [B,Se,D] for Whisper).  Caches
+keep the reference's layout (stacked over layers), and ``decode_step``
+writes the new K/V or state into the cache it is given and returns it.
+``build_model(cfg, device)`` selects the family and puts it on the card
+unless ``device="cpu"`` is asked for.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.engine import resolve_device
+from repro_torch.models import blocks as B
+from repro_torch.models import layers as L
+from repro_torch.models import ssm as S
+
+AUX_LOSS_WEIGHT = 0.01
+Z_LOSS_WEIGHT = 1e-4
+
+
+def _dtype(cfg):
+    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+def cross_entropy(logits, labels, ignore_index=-1):
+    """logits [B,S,V] fp32; labels [B,S] int.  Returns (loss, z_loss)."""
+    mask = labels != ignore_index
+    labels_safe = torch.where(mask, labels, torch.zeros_like(labels))
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels_safe[..., None])[..., 0]
+    nll = (lse - gold) * mask
+    denom = torch.clamp(mask.sum(), min=1)
+    z = (lse ** 2 * mask).sum() / denom
+    return nll.sum() / denom, z
+
+
+def param_count(model: nn.Module) -> int:
+    return sum(p.numel() for p in model.parameters())
+
+
+class BaseLM(L.Module):
+    """Dense / MoE / VLM decoder-only LM (GQA or MLA attention)."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        dt = _dtype(cfg)
+        self.emb = L.Table(cfg.vocab_size, cfg.d_model, dt, device)
+        self.final_norm = L.RMSNorm(cfg.d_model, device)
+        nd = cfg.moe.n_dense_layers if cfg.moe is not None else 0
+        if nd:
+            self.dense_stack = nn.ModuleList(
+                B.DecoderBlock(cfg, use_moe=False, dtype=dt, device=device)
+                for _ in range(nd))
+        self.stack = nn.ModuleList(
+            B.DecoderBlock(cfg, use_moe=cfg.moe is not None, dtype=dt,
+                           device=device)
+            for _ in range(cfg.n_layers - nd))
+        if not cfg.tie_embeddings:
+            self.head = L.Table(cfg.vocab_size, cfg.d_model, dt, device,
+                                scale=1.0 / float(cfg.d_model) ** 0.5)
+        if cfg.n_image_patches:
+            self.patch_proj = L.Module()
+            self.patch_proj.dense("w", cfg.d_model, cfg.d_model, dt, device)
+
+    @property
+    def device(self):
+        return self.emb.w.device
+
+    def _stacks(self):
+        return ([self.dense_stack] if hasattr(self, "dense_stack") else []) \
+            + [self.stack]
+
+    # ---------------- embedding helpers ------------------------------------
+    def _embed(self, batch):
+        h = L.embed(self.emb, batch["tokens"])
+        if self.cfg.n_image_patches:
+            patches = L.matmul(batch["patches"].to(h.dtype), self.patch_proj.w)
+            h = torch.cat([patches, h], dim=1)
+        return h
+
+    def _unembed(self, h):
+        return L.unembed(self.emb if self.cfg.tie_embeddings else self.head, h)
+
+    def _positions(self, total_seq):
+        return torch.arange(total_seq, device=self.device)[None, :]
+
+    # ---------------- forward / loss ----------------------------------------
+    def forward(self, batch):
+        h = self._embed(batch)
+        positions = self._positions(h.shape[1])
+        aux = torch.zeros((), device=h.device)
+        for stack in self._stacks():
+            h, a = B.decoder_stack(stack, h, positions)
+            aux = aux + a
+        h = self.final_norm(h, self.cfg.norm_eps)
+        return self._unembed(h), aux
+
+    def loss(self, batch):
+        cfg = self.cfg
+        logits, aux = self.forward(batch)
+        if cfg.n_image_patches:   # image positions carry no next-token loss
+            logits = logits[:, cfg.n_image_patches:]
+        ce, z = cross_entropy(logits, batch["labels"])
+        total = ce + AUX_LOSS_WEIGHT * aux + Z_LOSS_WEIGHT * z
+        return total, {"ce": ce, "aux": aux, "z": z}
+
+    # ---------------- serving ----------------------------------------------
+    def _prefill_once(self, batch):
+        h = self._embed(batch)
+        positions = self._positions(h.shape[1])
+        caches = []
+        for stack in self._stacks():
+            h, kv = B.decoder_stack_prefill(stack, h, positions)
+            caches.append(kv)
+        h = self.final_norm(h, self.cfg.norm_eps)
+        logits = self._unembed(h[:, -1:])
+        cache = caches[0] if len(caches) == 1 else \
+            {"dense": caches[0], "moe": caches[1]}
+        return logits, cache
+
+    @torch.inference_mode()
+    def prefill(self, batch):
+        """Prefill, processing the request batch in ``prefill_chunks``
+        sequential chunks where the batch divides (bounds the MoE archs'
+        activation and dispatch peak); the chunks' logits and caches are
+        joined back along the batch axis."""
+        nc = self.cfg.prefill_chunks
+        bsz = batch["tokens"].shape[0]
+        if nc <= 1 or bsz % nc:
+            return self._prefill_once(batch)
+        step = bsz // nc
+        parts = [self._prefill_once({k: v[i:i + step]
+                                     for k, v in batch.items()})
+                 for i in range(0, bsz, step)]
+        logits = torch.cat([lg for lg, _ in parts])
+        return logits, _join([c for _, c in parts])
+
+    def init_cache(self, batch_size, max_seq):
+        cfg, dt, dev = self.cfg, _dtype(self.cfg), self.device
+
+        def stack_cache(n_layers):
+            if cfg.mla is not None:
+                m = cfg.mla
+                return {
+                    "ckv": torch.zeros((n_layers, batch_size, max_seq,
+                                        m.kv_lora_rank), dtype=dt, device=dev),
+                    "krope": torch.zeros((n_layers, batch_size, max_seq,
+                                          m.qk_rope_head_dim), dtype=dt,
+                                         device=dev),
+                }
+            shape = (n_layers, batch_size, max_seq, cfg.n_kv_heads,
+                     cfg.resolved_head_dim)
+            return {"k": torch.zeros(shape, dtype=dt, device=dev),
+                    "v": torch.zeros(shape, dtype=dt, device=dev)}
+
+        if hasattr(self, "dense_stack"):
+            nd = cfg.moe.n_dense_layers
+            return {"dense": stack_cache(nd),
+                    "moe": stack_cache(cfg.n_layers - nd)}
+        return stack_cache(cfg.n_layers)
+
+    @torch.inference_mode()
+    def decode_step(self, cache, tokens, pos):
+        h = L.embed(self.emb, tokens)                      # [B,1,D]
+        if "dense" in cache:
+            h, _ = B.decoder_stack_decode(self.dense_stack, h, cache["dense"],
+                                          pos)
+            h, _ = B.decoder_stack_decode(self.stack, h, cache["moe"], pos)
+        else:
+            h, _ = B.decoder_stack_decode(self.stack, h, cache, pos)
+        h = self.final_norm(h, self.cfg.norm_eps)
+        return self._unembed(h), cache
+
+
+def _join(caches):
+    """Join per-chunk caches ([L, b', ...] leaves) along the batch axis."""
+    first = caches[0]
+    if isinstance(first, dict):
+        return {k: _join([c[k] for c in caches]) for k in first}
+    return torch.cat(caches, dim=1)
+
+
+class WhisperModel(BaseLM):
+    """Encoder-decoder (whisper backbone); the conv/mel frontend is a stub:
+    the batch provides precomputed frame embeddings [B, Se, D]."""
+
+    MAX_DEC_POS = 32768
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        L.Module.__init__(self)
+        self.cfg = cfg
+        dt = _dtype(cfg)
+        self.enc_stack = nn.ModuleList(B.EncoderBlock(cfg, dt, device)
+                                       for _ in range(cfg.n_encoder_layers))
+        self.enc_norm = L.LayerNorm(cfg.d_model, device)
+        self.emb = L.Table(cfg.vocab_size, cfg.d_model, dt, device)
+        self.param("dec_pos", (self.MAX_DEC_POS, cfg.d_model), torch.float32,
+                   device, 0.01)
+        self.dec_stack = nn.ModuleList(B.XDecBlock(cfg, dt, device)
+                                       for _ in range(cfg.n_layers))
+        self.dec_norm = L.LayerNorm(cfg.d_model, device)
+
+    def encode(self, frames):
+        cfg = self.cfg
+        h = frames.to(_dtype(cfg))
+        h = h + L.sinusoidal_positions(h.shape[1], cfg.d_model,
+                                       h.device).to(h.dtype)
+        for blk in self.enc_stack:
+            h = blk(h, None)
+        return self.enc_norm(h, cfg.norm_eps)
+
+    def _decode_seq(self, enc, tokens):
+        h = L.embed(self.emb, tokens)
+        h = h + self.dec_pos[:tokens.shape[1]].to(h.dtype)
+        for blk in self.dec_stack:
+            h = blk(h, enc, None)
+        h = self.dec_norm(h, self.cfg.norm_eps)
+        return L.unembed(self.emb, h)
+
+    def forward(self, batch):
+        enc = self.encode(batch["frames"])
+        return self._decode_seq(enc, batch["tokens"]), \
+            torch.zeros((), device=enc.device)
+
+    def loss(self, batch):
+        logits, _ = self.forward(batch)
+        ce, z = cross_entropy(logits, batch["labels"])
+        return ce + Z_LOSS_WEIGHT * z, {"ce": ce, "z": z}
+
+    def init_cache(self, batch_size, max_seq):
+        cfg, dt, dev = self.cfg, _dtype(self.cfg), self.device
+        hd, ls = cfg.resolved_head_dim, cfg.n_layers
+        self_shape = (ls, batch_size, max_seq, cfg.n_kv_heads, hd)
+        cross_shape = (ls, batch_size, cfg.encoder_seq_len, cfg.n_heads, hd)
+        return {"k": torch.zeros(self_shape, dtype=dt, device=dev),
+                "v": torch.zeros(self_shape, dtype=dt, device=dev),
+                "xk": torch.zeros(cross_shape, dtype=dt, device=dev),
+                "xv": torch.zeros(cross_shape, dtype=dt, device=dev)}
+
+    @torch.inference_mode()
+    def prefill(self, batch):
+        """The last logits and only the frozen cross K/V (the reference's
+        contract: the self-attention K/V is rebuilt during decode)."""
+        enc = self.encode(batch["frames"])
+        xk, xv = B.xdec_cross_kv(self.dec_stack, enc)
+        logits = self._decode_seq(enc, batch["tokens"])
+        return logits[:, -1:], {"xk": xk, "xv": xv}
+
+    @torch.inference_mode()
+    def decode_step(self, cache, tokens, pos):
+        h = L.embed(self.emb, tokens)
+        h = h + self.dec_pos[pos:pos + 1].to(h.dtype)
+        for i, blk in enumerate(self.dec_stack):
+            h = blk.decode(h, B._slice(cache, i), pos)
+        h = self.dec_norm(h, self.cfg.norm_eps)
+        return L.unembed(self.emb, h), cache
+
+
+class XLSTMModel(BaseLM):
+    """xLSTM: super-layers of (slstm_every-1) mLSTM + 1 sLSTM."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        L.Module.__init__(self)
+        self.cfg = cfg
+        dt = _dtype(cfg)
+        self.emb = L.Table(cfg.vocab_size, cfg.d_model, dt, device)
+        self.stack = nn.ModuleList(B.XLSTMSuper(cfg, dt, device)
+                                   for _ in range(self._n_supers()))
+        self.final_norm = L.RMSNorm(cfg.d_model, device)
+        self.head = L.Table(cfg.vocab_size, cfg.d_model, dt, device,
+                            scale=1.0 / float(cfg.d_model) ** 0.5)
+
+    def _n_supers(self):
+        return self.cfg.n_layers // self.cfg.xlstm.slstm_every
+
+    def forward(self, batch):
+        h = L.embed(self.emb, batch["tokens"])
+        for sup in self.stack:
+            h = sup(h)
+        h = self.final_norm(h, self.cfg.norm_eps)
+        return self._unembed(h), torch.zeros((), device=h.device)
+
+    def init_cache(self, batch_size, max_seq):
+        cfg, dev = self.cfg, self.device
+        g, n_m = self._n_supers(), max(cfg.xlstm.slstm_every - 1, 1)
+        m_state = {k: t.expand(g, n_m, *t.shape).clone() for k, t in
+                   S.mlstm_init_state(cfg, batch_size, dev).items()}
+        s_state = {k: t.expand(g, *t.shape).clone() for k, t in
+                   S.slstm_init_state(cfg, batch_size, dev).items()}
+        return {"mlstm": m_state, "slstm": s_state}
+
+    @torch.inference_mode()
+    def prefill(self, batch):
+        """The last logits and a fresh empty state, as the reference's
+        (the state is not carried out of the prompt)."""
+        logits, _ = self.forward(batch)
+        return logits[:, -1:], self.init_cache(batch["tokens"].shape[0], 0)
+
+    @torch.inference_mode()
+    def decode_step(self, cache, tokens, pos):
+        h = L.embed(self.emb, tokens)
+        for g, sup in enumerate(self.stack):
+            h = sup.decode(h, B._slice(cache, g))
+        h = self.final_norm(h, self.cfg.norm_eps)
+        return self._unembed(h), cache
+
+
+class ZambaModel(BaseLM):
+    """Zamba2: Mamba2 backbone + weight-shared attention block."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        L.Module.__init__(self)
+        self.cfg = cfg
+        dt = _dtype(cfg)
+        self.emb = L.Table(cfg.vocab_size, cfg.d_model, dt, device)
+        self.stack = nn.ModuleList(B.ZambaSuper(cfg, dt, device)
+                                   for _ in range(self._n_supers()))
+        self.shared = B.ZambaShared(cfg, dt, device)
+        self.final_norm = L.RMSNorm(cfg.d_model, device)
+        self.head = L.Table(cfg.vocab_size, cfg.d_model, dt, device,
+                            scale=1.0 / float(cfg.d_model) ** 0.5)
+
+    def _n_supers(self):
+        return self.cfg.n_layers // self.cfg.shared_attn_every
+
+    def forward(self, batch):
+        emb0 = L.embed(self.emb, batch["tokens"])
+        positions = self._positions(emb0.shape[1])
+        h = emb0
+        for sup in self.stack:
+            h = sup(h, self.shared, emb0, positions)
+        h = self.final_norm(h, self.cfg.norm_eps)
+        return self._unembed(h), torch.zeros((), device=h.device)
+
+    def init_cache(self, batch_size, max_seq):
+        cfg, dt, dev = self.cfg, _dtype(self.cfg), self.device
+        g, k = self._n_supers(), cfg.shared_attn_every
+        m_state = {n: t.expand(g, k, *t.shape).clone() for n, t in
+                   S.mamba2_init_state(cfg, batch_size, device=dev).items()}
+        shape = (g, batch_size, max_seq, cfg.n_kv_heads,
+                 cfg.resolved_head_dim)
+        return {"mamba": m_state,
+                "k": torch.zeros(shape, dtype=dt, device=dev),
+                "v": torch.zeros(shape, dtype=dt, device=dev)}
+
+    @torch.inference_mode()
+    def prefill(self, batch):
+        """The last logits and no cache (``None``), as the reference's."""
+        logits, _ = self.forward(batch)
+        return logits[:, -1:], None
+
+    @torch.inference_mode()
+    def decode_step(self, cache, tokens, pos):
+        emb0 = L.embed(self.emb, tokens)
+        h = emb0
+        for g, sup in enumerate(self.stack):
+            h = sup.decode(h, self.shared, emb0, B._slice(cache, g), pos)
+        h = self.final_norm(h, self.cfg.norm_eps)
+        return self._unembed(h), cache
+
+
+def build_model(cfg: ModelConfig, device=None) -> BaseLM:
+    """The model of ``cfg``'s family, its weights allocated (not yet drawn:
+    call ``init(generator)``) on ``device``: the CUDA card unless
+    ``device="cpu"`` is asked for; on a host without CUDA the default
+    raises."""
+    dev = resolve_device(device)
+    if cfg.family == "audio":
+        return WhisperModel(cfg, dev)
+    if cfg.family == "ssm" and cfg.xlstm is not None:
+        return XLSTMModel(cfg, dev)
+    if cfg.family == "hybrid":
+        return ZambaModel(cfg, dev)
+    return BaseLM(cfg, dev)

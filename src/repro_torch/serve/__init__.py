@@ -11,7 +11,9 @@ router with admission control in ``router.py``, replica pool + lifecycle
 generator in ``trace.py``.  Cross-process replicas live in ``proc.py``
 (worker + parent-side client) over the spooled-file transport in
 ``transport.py``; deterministic fault injection for both tests and
-launch drivers in ``chaos.py``.
+launch drivers in ``chaos.py``.  The LM-substrate serving helpers
+(prefill, single-token decode, greedy generation) live in ``serve/lm.py``;
+``serve/api.py`` is the DIFET service.
 """
 from repro_torch.serve.api import (FeatureService, ServeConfig,  # noqa: F401
                                    ExtractResponse, ResponseHandle,
