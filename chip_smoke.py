@@ -173,12 +173,34 @@ Run from the root of a checkout, with no arguments: ``python3 chip_smoke.py``.
    to ``attention_einsum`` within 2e-3 (float32 inputs) and both timed in
    bf16 beside ``F.scaled_dot_product_attention`` (a yardstick, not on
    the path).  The matmul flags are printed as found.
+10b. Phase 3h, the LM substrate's training path (``launch/train.py``,
+   ``train/``, ``optim/``, ``checkpoint/``; no kernel of its own), in
+   torch's deterministic mode (``CUBLAS_WORKSPACE_CONFIG`` set before the
+   first GEMM): smollm-135m through ``launch.train.main`` at its defaults
+   (full width and depth, bf16, remat dots, B 8 x S 256, lr 3e-3): 40
+   steps uninterrupted, then 20 checkpointed and ``--resume`` to 40, whose
+   losses must equal steps 20-39 bit for bit, the mean of the last 10
+   losses below the first 10's, every loss and grad norm finite; every
+   other arch 2 steps at full width in bf16 with its config's remat, B 4 x
+   S 256 (+ 256 patches, or 1500 frames), depth cut only where one card
+   cannot hold weights + grads + fp32 m, v (glm4-9b 16 layers,
+   qwen1.5-110b and dbrx-132b 1; deepseek-v3-671b only in the reduced
+   check: one MoE layer is ~138 GB of such state), loss, grad norm and
+   every parameter finite and one changed, with step ms, tokens/s, the
+   model-FLOP share, weights + m, v GiB and the peak; smollm-135m's grads
+   under remat nothing, dots and full bitwise equal with peaks ordered
+   full <= dots <= nothing; its train state checkpointed on the card and
+   restored on the CPU bit for bit, and back; one train step of every
+   reduced config in float32 on the card against the CPU (loss, grad norm
+   and parameters within rtol/atol 1e-4, atol 2 lr where |g| is within
+   that of 0).
 11. Prints the kernels JSON line (with ``launch_weighted_ms`` and
    ``launch_weighted_bound_ms`` per kernel: the sum over the kernel's
    launches on its path of each one's measured time and its bound, and for
    the extraction kernels ``served_launches_per_replay`` by bucket), a
    ``serve`` line of phase 3d's figures, a ``fleet`` line of phase 3e's,
-   a ``mesh`` line of phase 3f's, an ``lm`` line of phase 3g's, the card's
+   a ``mesh`` line of phase 3f's, an ``lm`` line of phase 3g's, a
+   ``train`` line of phase 3h's, the card's
    name and power
    limit, and last ``{"ok": true, "device": {...}}``.
 
@@ -197,7 +219,9 @@ non-zero and prints no result.
 from __future__ import annotations
 
 import collections
+import gc
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -292,6 +316,21 @@ LM_TIE_GAP = 1e-3                   # greedy tokens held above this gap
 # Zamba's all; xLSTM's first (from the second token its window is bf16)
 LM_F32_DECODE = {"xlstm-350m": 1, "zamba2-2.7b": LM_TEACHER}
 LM_LONG = ("smollm-135m", 4096)     # = ONLINE_ATTN_MIN_SEQ, B 1
+# phase 3h, the LM substrate's training path: smollm-135m through
+# launch/train.py at its defaults (B 8 x S 256, lr 3e-3, warm-up 20, the
+# config's remat), uninterrupted and checkpointed then resumed; every other
+# arch 2 steps at full width in bf16, depth cut only where one card cannot
+# hold weights + grads + fp32 m, v (12 bytes a parameter); deepseek-v3's
+# one MoE layer of 256 experts alone needs ~138 GB of that state, so it
+# trains in the reduced check only
+TRAIN_MAIN = ["--arch", "smollm-135m", "--log-every", "10"]
+TRAIN_STEPS, TRAIN_RESUME_AT = 40, 20
+TRAIN_DEPTH_CUTS = {"glm4-9b": 16, "qwen1.5-110b": 1, "dbrx-132b": 1}
+TRAIN_SKIP_FULL = ("deepseek-v3-671b",)
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_ARCH_STEPS = 4, 256, 2
+TRAIN_F32_TOL = dict(rtol=1e-4, atol=1e-4)   # card against CPU, float32
+TRAIN_F32_LR = 1e-3
+BF16_PEAK_FLOPS = 989e12            # H100 SXM dense bf16, data sheet
 # device kernel names of each wrapper's kernels (the profiler's keys)
 DEVICE_NAMES = {"harris": ("harris_kernel",), "fast": ("fast_tiled",),
                 "blur": ("blur_tiled", "blur_small"),
@@ -2130,6 +2169,356 @@ def lm_phase(torch, np):
     return figures
 
 
+def train_batch(torch, cfg, b, s, gen, dev, dtype):
+    """``lm_batch`` and random next-token labels."""
+    batch = lm_batch(torch, cfg, b, s, gen, dev, dtype)
+    batch["labels"] = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                                    device=dev)
+    return batch
+
+
+def state_gib(state):
+    return sum(t.numel() * t.element_size() for k in ("m", "v")
+               for t in state["opt"][k].values()) / 2 ** 30
+
+
+def all_finite(torch, tensors):
+    return bool(torch.stack([torch.isfinite(t).all() for t in tensors]).all())
+
+
+def train_main_path(torch, ckpt_dir):
+    """smollm-135m through ``launch.train.main``: TRAIN_STEPS steps
+    uninterrupted, then TRAIN_RESUME_AT steps checkpointed and a resume to
+    TRAIN_STEPS.  Each step's metrics are recorded by wrapping the step
+    function the launcher builds."""
+    import numpy as np
+
+    from repro_torch.launch import train as T
+    made, record = T.make_train_step, []
+
+    def recording(*args, **kw):
+        step = made(*args, **kw)
+
+        def timed(state, batch):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+            record.append(dict(s=time.perf_counter() - t0,
+                               loss=float(m["loss"]),
+                               grad_norm=float(m["grad_norm"]),
+                               lr=float(m["lr"])))
+            return state, m
+        return timed
+
+    T.make_train_step = recording
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        full = T.main(TRAIN_MAIN + ["--steps", str(TRAIN_STEPS)])
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        steps = record[:]
+        ck = ["--ckpt-dir", str(ckpt_dir)]
+        part = T.main(TRAIN_MAIN + ["--steps", str(TRAIN_RESUME_AT)] + ck
+                      + ["--ckpt-every", str(TRAIN_RESUME_AT)])
+        resumed = T.main(TRAIN_MAIN + ["--steps", str(TRAIN_STEPS)] + ck
+                         + ["--resume"])
+    finally:
+        T.make_train_step = made
+    require(len(full) == TRAIN_STEPS and len(resumed) == TRAIN_STEPS
+            - TRAIN_RESUME_AT, "train: the runs took other step counts")
+    require(all(np.isfinite([r["loss"] for r in record]
+                            + [r["grad_norm"] for r in record])),
+            "train: a loss or grad norm is not finite")
+    require(part == full[:TRAIN_RESUME_AT], "train: the checkpointed run "
+            "differs from the uninterrupted one before the checkpoint")
+    tail = full[TRAIN_RESUME_AT:]
+    require(resumed == tail, f"train: the resumed losses differ from the "
+            f"uninterrupted run (max abs "
+            f"{max(abs(a - b) for a, b in zip(resumed, tail))})")
+    first, last = np.mean(full[:10]), np.mean(full[-10:])
+    require(last < first, f"train: loss did not fall ({first} -> {last})")
+    step_s = statistics.median(r["s"] for r in steps[1:])
+    return dict(losses=full, resumed_bitwise=True, first10=float(first),
+                last10=float(last), step_ms=1e3 * step_s,
+                grad_norms=[r["grad_norm"] for r in steps],
+                tokens_per_s=8 * 256 / step_s,     # the launcher's B x S
+                peak_gib=peak,
+                run_s=sum(r["s"] for r in steps))
+
+
+def train_card_against_cpu(torch, arch, dev):
+    """One train step of ``arch``'s reduced config in float32 from one set
+    of weights (3g's seeds) on the CPU and the card: loss and grad norm
+    within TRAIN_F32_TOL, and every updated parameter too, except where the
+    CPU's |g| lies within that tolerance of 0 (the first AdamW step, about
+    lr * sign(g), may go the other way there: atol 2 lr)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamW
+    from repro_torch.train.step import (TrainStepConfig, make_init_fn,
+                                        make_train_step)
+    cfg = get_config(arch).reduced().replace(dtype="float32",
+                                             remat="nothing")
+    batch = train_batch(torch, cfg, 2, 32, torch.Generator().manual_seed(12),
+                        "cpu", torch.float32)
+    opt, scfg = AdamW(), TrainStepConfig(learning_rate=TRAIN_F32_LR)
+    models, states = {}, {}
+    for where, gen in (("cpu", torch.Generator().manual_seed(11)),
+                       (dev, torch.Generator(device=dev))):
+        models[where] = build_model(cfg, device=where)
+        states[where] = make_init_fn(models[where], opt, scfg)(gen)
+    models[dev].load_state_dict(models["cpu"].state_dict())
+    loss, _ = models["cpu"].loss(batch)
+    grads = dict(zip(states["cpu"]["params"], torch.autograd.grad(
+        loss, list(states["cpu"]["params"].values()))))
+    cpu, mc = make_train_step(models["cpu"], opt, scfg)(states["cpu"], batch)
+    card, md = make_train_step(models[dev], opt, scfg)(
+        states[dev], {k: v.to(dev) for k, v in batch.items()})
+    for k in ("loss", "grad_norm"):
+        require(np.isclose(float(md[k]), float(mc[k]), **TRAIN_F32_TOL),
+                f"{arch} reduced float32 train step, card against CPU: {k} "
+                f"{float(md[k])} against {float(mc[k])}")
+    worst, flips = 0.0, 0
+    tol = TRAIN_F32_TOL
+    for k, want in cpu["params"].items():
+        got = card["params"][k].detach().cpu()
+        g = grads[k].abs()
+        flip = g <= tol["atol"] + tol["rtol"] * g
+        flips += int(flip.sum())
+        want = want.detach()
+        require(torch.allclose(got[~flip], want[~flip], **tol) and
+                torch.allclose(got[flip], want[flip], rtol=0,
+                               atol=2 * TRAIN_F32_LR),
+                f"{arch} reduced float32 train step, card against CPU: "
+                f"parameter {k} max abs {max_abs(got, want):.4g}")
+        worst = max(worst, max_abs(got[~flip], want[~flip])
+                    if (~flip).any() else 0.0)
+    return dict(loss=float(md["loss"]), max_abs_param=worst,
+                held_at_2lr=flips)
+
+
+def train_phase(torch):
+    """Phase 3h: the LM substrate's training path on the card
+    (``launch/train.py`` -> ``train/step.py`` -> ``models/*`` under
+    autograd and remat -> ``optim/adamw.py``; ``checkpoint/``).  Runs in
+    torch's deterministic mode (``CUBLAS_WORKSPACE_CONFIG`` is set before
+    the first GEMM of the run), so that a resume and the remat policies
+    are held bit for bit.  Returns the phase's figures."""
+    import shutil
+
+    from repro_torch.checkpoint import CheckpointManager, flatten_state
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.model import param_count
+    from repro_torch.optim import AdamW
+    from repro_torch.train.step import (TrainStepConfig, make_init_fn,
+                                        make_train_step)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    torch.use_deterministic_algorithms(True)
+    ckpt_root = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    figures = {"deterministic": True, "archs": {}}
+    try:
+        # the main path: smollm-135m through the launcher, with its resume
+        t0 = time.perf_counter()
+        main = train_main_path(torch, ckpt_root / "main")
+        main["wall_s"] = time.perf_counter() - t0
+        figures["main"] = main
+        log(f"  smollm-135m through launch/train.py (B 8 x S 256, lr 3e-3, "
+            f"remat dots, bf16): {TRAIN_STEPS} steps, loss "
+            f"{main['first10']:.4f} -> {main['last10']:.4f} (means of the "
+            f"first and last 10); step "
+            f"{main['step_ms']:.2f} ms (median of steps 2-{TRAIN_STEPS}), "
+            f"{main['tokens_per_s']:.0f} tokens/s, peak "
+            f"{main['peak_gib']:.2f} GiB; resumed at {TRAIN_RESUME_AT} "
+            f"bitwise the uninterrupted run; {main['wall_s']:.1f} s for the "
+            f"three runs")
+
+        # every other arch: 2 steps at full width in bf16
+        for seed, arch in enumerate(sorted(ARCH_IDS)):
+            if arch in TRAIN_SKIP_FULL or arch == "smollm-135m":
+                continue
+            cfg = get_config(arch)
+            full_layers = cfg.n_layers
+            if arch in TRAIN_DEPTH_CUTS:
+                cfg = cfg.replace(n_layers=TRAIN_DEPTH_CUTS[arch])
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            model = build_model(cfg)
+            opt, scfg = AdamW(), TrainStepConfig()
+            state = make_init_fn(model, opt, scfg)(
+                torch.Generator(device=dev).manual_seed(seed))
+            step = make_train_step(model, opt, scfg)
+            batch = train_batch(torch, cfg, TRAIN_BATCH, TRAIN_SEQ,
+                                torch.Generator(device=dev).manual_seed(
+                                    200 + seed), dev, torch.bfloat16)
+            params = list(state["params"].values())
+            before = [p.detach().reshape(-1)[:4096].clone() for p in params]
+            times = []
+            for _ in range(TRAIN_ARCH_STEPS):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                state, m = step(state, batch)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t1)
+                require(bool(torch.isfinite(m["loss"])) and
+                        bool(torch.isfinite(m["grad_norm"])),
+                        f"{arch}: train step loss or grad norm not finite")
+            require(all_finite(torch, params),
+                    f"{arch}: an updated parameter is not finite")
+            require(any(not torch.equal(p.detach().reshape(-1)[:4096], b)
+                        for p, b in zip(params, before)),
+                    f"{arch}: no parameter changed")
+            n = param_count(model)
+            step_s = statistics.median(times[1:])
+            tokens = TRAIN_BATCH * TRAIN_SEQ
+            row = dict(n_layers=cfg.n_layers, full_layers=full_layers,
+                       depth_cut=arch in TRAIN_DEPTH_CUTS, remat=cfg.remat,
+                       params=n, step_ms=1e3 * step_s,
+                       first_step_ms=1e3 * times[0],
+                       tokens_per_s=tokens / step_s,
+                       mfu=6 * n * tokens / step_s / BF16_PEAK_FLOPS,
+                       weight_gib=sum(p.numel() * p.element_size()
+                                      for p in params) / 2 ** 30,
+                       state_gib=state_gib(state),
+                       peak_gib=(torch.cuda.max_memory_allocated() - base)
+                       / 2 ** 30,
+                       loss=float(m["loss"]), grad_norm=float(m["grad_norm"]))
+            figures["archs"][arch] = row
+            cut = (f"depth cut {full_layers} -> {cfg.n_layers}"
+                   if arch in TRAIN_DEPTH_CUTS
+                   else f"full depth {cfg.n_layers}")
+            log(f"  {arch:17s} {cut}, remat {cfg.remat}: step "
+                f"{row['step_ms']:.1f} ms (first {row['first_step_ms']:.1f}), "
+                f"{row['tokens_per_s']:.0f} tokens/s, model-FLOP share "
+                f"{100 * row['mfu']:.2f}% of {BF16_PEAK_FLOPS:.3g}; weights "
+                f"{row['weight_gib']:.2f} + m, v {row['state_gib']:.2f} GiB, "
+                f"peak {row['peak_gib']:.2f} GiB; loss {row['loss']:.4f}, "
+                f"grad norm {row['grad_norm']:.3f}")
+            del model, state, step, batch, params, before, m
+            gc.collect()
+        torch.cuda.empty_cache()
+
+        # remat on the card: one batch, three policies, bitwise grads
+        cfg = get_config("smollm-135m")
+        model = build_model(cfg).init(
+            torch.Generator(device=dev).manual_seed(3))
+        batch = train_batch(torch, cfg, 8, 256, torch.Generator(
+            device=dev).manual_seed(4), dev, torch.bfloat16)
+        params = dict(model.named_parameters())
+        grads, peaks, fwd_bwd_ms = {}, {}, {}
+
+        def fwd_bwd():
+            loss, _ = model.loss(batch)
+            return torch.autograd.grad(loss, list(params.values()))
+
+        for remat in ("nothing", "dots", "full"):
+            model.cfg = cfg.replace(remat=remat)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            fwd_bwd_ms[remat] = 1e3 * host_s(fwd_bwd, 3)
+            grads[remat] = fwd_bwd()
+            torch.cuda.synchronize()
+            peaks[remat] = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        model.cfg = cfg
+        for remat in ("dots", "full"):
+            require(all(torch.equal(a, b) for a, b in
+                        zip(grads[remat], grads["nothing"])),
+                    f"remat {remat}: grads differ from remat nothing")
+        require(peaks["full"] <= peaks["dots"] <= peaks["nothing"],
+                f"remat peaks not ordered full <= dots <= nothing: {peaks}")
+        figures["remat_peak_gib"] = peaks
+        log(f"  remat on smollm-135m, B 8 x S 256: grads bitwise equal; peak "
+            f"GiB nothing {peaks['nothing']:.3f}, dots {peaks['dots']:.3f}, "
+            f"full {peaks['full']:.3f}")
+
+        # where smollm's step goes: forward, forward + backward by remat
+        # policy, the update, and one step (remat dots) under the profiler
+        def fwd():
+            with torch.no_grad():
+                model.loss(batch)
+
+        opt = AdamW()
+        state = {"params": params, "opt": opt.init(params),
+                 "step": torch.zeros((), dtype=torch.int32, device=dev)}
+        g = dict(zip(params, grads["nothing"]))
+        del grads
+        breakdown = dict(fwd_ms=1e3 * host_s(fwd, 3),
+                         fwd_bwd_ms=fwd_bwd_ms,
+                         update_ms=1e3 * host_s(lambda: opt.update(
+                             g, state["opt"], params, 1e-3), 3))
+        del g
+        step = make_train_step(model, opt, TrainStepConfig())
+        from torch.profiler import ProfilerActivity, profile
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            state, _ = step(state, batch)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+        dev_events = [e for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy = sum(e.self_device_time_total for e in dev_events) / 1e3
+        breakdown.update(profiled_step_ms=1e3 * wall, busy_ms=busy,
+                         device_kernels=sum(e.count for e in dev_events))
+        figures["smollm_breakdown"] = breakdown
+        log(f"  smollm-135m's step, B 8 x S 256, deterministic: forward "
+            f"{breakdown['fwd_ms']:.1f} ms; forward + backward "
+            + ", ".join(f"{k} {v:.1f}" for k, v in fwd_bwd_ms.items())
+            + f" ms; update {breakdown['update_ms']:.1f} ms; one step (dots) "
+            f"under the profiler {1e3 * wall:.1f} ms, "
+            + (f"the card busy {busy:.1f} ms ({100 * busy / (1e3 * wall):.1f}"
+               f"%), {breakdown['device_kernels']} kernels" if busy > 0 else
+               "no device time recorded (busy share not measured)"))
+
+        # checkpoints across devices: card -> CPU and CPU -> card, bitwise
+        cm = CheckpointManager(ckpt_root / "cross")
+        t1 = time.perf_counter()
+        cm.save(state, 1)
+        save_s = time.perf_counter() - t1
+        on_cpu, _ = cm.restore(state, device="cpu")
+        leaves = flatten_state(state)
+        for (k, a), (_, b) in zip(leaves, flatten_state(on_cpu)):
+            require(b.device.type == "cpu" and b.dtype == a.dtype and
+                    torch.equal(a.cpu(), b), f"checkpoint card -> CPU: {k}")
+        cm.save(on_cpu, 2)
+        on_card, _ = cm.restore(on_cpu, step=2, device=dev)
+        for (k, a), (_, b) in zip(leaves, flatten_state(on_card)):
+            require(b.device == dev and torch.equal(a, b),
+                    f"checkpoint CPU -> card: {k}")
+        figures["checkpoint"] = dict(
+            leaves=len(leaves), save_s=save_s,
+            bytes=sum(v.numel() * v.element_size() for _, v in leaves))
+        log(f"  checkpoint of smollm-135m's train state "
+            f"({figures['checkpoint']['bytes'] / 2 ** 30:.2f} GiB, "
+            f"{len(leaves)} leaves, bf16/fp32/int32) written on the card "
+            f"restores on the CPU bitwise, and back ({save_s:.1f} s a save)")
+        del model, params, state, on_cpu, on_card, batch, step, leaves
+        torch.cuda.empty_cache()
+
+        # the card against the CPU: every reduced config, float32, one step
+        figures["card_vs_cpu"] = {
+            arch: train_card_against_cpu(torch, arch, dev)
+            for arch in sorted(ARCH_IDS)}
+        log(f"  card = CPU in float32, one train step on every arch's reduced "
+            f"config (loss, grad norm, parameters within rtol/atol 1e-4; "
+            f"atol 2 lr where |g| is within it of 0): max abs parameter "
+            f"difference " + ", ".join(
+                f"{a} {r['max_abs_param']:.3g}"
+                for a, r in figures["card_vs_cpu"].items()))
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(ckpt_root, ignore_errors=True)
+    return figures
+
+
 def mesh_cards_main(n_cards: int) -> int:
     """``--mesh-cards N``: the build, the data mesh on ``data_mesh(m)`` for
     m in 1, 2, 4 up to N (`mesh_phase`), Table 1 per card count
@@ -2210,6 +2599,9 @@ def mesh_cards_main(n_cards: int) -> int:
 
 
 def main() -> int:
+    # phase 3h runs in torch's deterministic mode, whose cuBLAS calls need
+    # this workspace setting in place before the process's first GEMM
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke: run from the root of a checkout (src/repro_torch "
               "not found)", file=sys.stderr)
@@ -2929,6 +3321,12 @@ def main() -> int:
     lm_figures = lm_phase(torch, np)
     phase_done("3g (LM serving path)")
 
+    # ---- 3h. the LM substrate's training path ------------------------------
+    log("phase 3h: the LM training path (deterministic mode), bf16 at full "
+        "width:")
+    train_figures = train_phase(torch)
+    phase_done("3h (LM training path)")
+
     # ---- 4. timings ---------------------------------------------------------
     log("timings (median of %d, CUDA events around one call; [device time "
         "per call under torch.profiler]):" % REPS)
@@ -3268,6 +3666,7 @@ def main() -> int:
     log("fleet " + json.dumps(fleet_figures))
     log("mesh " + json.dumps(mesh_figures))
     log("lm " + json.dumps(lm_figures))
+    log("train " + json.dumps(train_figures))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)

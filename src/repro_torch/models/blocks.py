@@ -7,16 +7,49 @@ shared-attention insertions, DeepSeek's dense->MoE split) are lists of
 super-layers.  A stack's decode takes the reference's stacked cache
 (leading layer axis, and the super-layer axes of xLSTM and Zamba) and
 writes each layer's slice in place.
+
+Remat policy (config ``remat``): 'nothing' | 'dots' | 'full' wraps each
+layer, or each super-layer, in activation checkpointing while grad is
+enabled, as the reference wraps each scan body in ``jax.checkpoint``.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
+
+
+# 'dots' saves the GEMMs without batch dimensions (``mm``, ``addmm``, and
+# ``mm`` with ``out_dtype`` inside ``layers.MatmulF32``) and recomputes the
+# rest, ``bmm`` included: ``checkpoint_dots_with_no_batch_dims``
+_SAVED_DOTS = (torch.ops.aten.mm, torch.ops.aten.addmm)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op.overloadpacket in _SAVED_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def maybe_remat(fn, remat: str):
+    """``fn``, or ``fn`` under activation checkpointing while grad is
+    enabled: 'nothing' | 'dots' (save the dots without batch dimensions)
+    | anything else: 'full' (save only the inputs)."""
+    if remat == "nothing" or not torch.is_grad_enabled():
+        return fn
+    if remat == "dots":
+        return functools.partial(
+            checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                         _dots_policy))
+    return functools.partial(checkpoint, fn, use_reentrant=False)
 
 
 def _slice(cache, i):
@@ -80,11 +113,11 @@ class DecoderBlock(L.Module):
         return self._ffn(h + a)[0], kv
 
 
-def decoder_stack(blocks, h, positions, *, causal=True):
+def decoder_stack(blocks, h, positions, *, causal=True, remat="nothing"):
     """Returns (h, aux_sum)."""
     aux = torch.zeros((), device=h.device)
     for blk in blocks:
-        h, a = blk(h, positions, causal=causal)
+        h, a = maybe_remat(blk, remat)(h, positions, causal=causal)
         aux = aux + a
     return h, aux
 

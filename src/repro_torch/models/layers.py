@@ -81,15 +81,43 @@ def matmul(x, w):
     return (x.float() @ w.float()).to(x.dtype)
 
 
+class MatmulF32(torch.autograd.Function):
+    """a @ b (``[M,K] @ [K,N]``, or batched ``[B,M,K] @ [B,K,N]``) with an
+    fp32 result.  On the card the forward is one bf16 GEMM writing fp32
+    (``out_dtype``), an overload that has no derivative of its own; the
+    backward is what JAX's transpose of ``dot_general(...,
+    preferred_element_type=float32)`` computes: the fp32 cotangent times the
+    other operand in fp32, rounded once to that operand's dtype.  On the CPU
+    the forward upcasts both operands (the tests reach the backward so)."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        mm = torch.bmm if a.dim() == 3 else torch.mm
+        if a.is_cuda:
+            return mm(a, b, out_dtype=torch.float32)
+        return mm(a.float(), b.float())
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        ga = gb = None
+        if ctx.needs_input_grad[0]:
+            ga = (g @ b.float().transpose(-1, -2)).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            gb = (a.float().transpose(-1, -2) @ g).to(b.dtype)
+        return ga, gb
+
+
 def matmul_f32(x, w):
     """x [..., d] @ w [d, f] with fp32 products and accumulation and an fp32
     result (the reference's ``preferred_element_type=float32`` without the
-    cast back).  On the card a bf16 GEMM writes fp32 (``out_dtype``) so that
-    no weight is upcast."""
+    cast back).  On the card a bf16 GEMM writes fp32 (``MatmulF32``) so that
+    no weight is upcast in the forward."""
     if x.dtype == torch.float32 and w.dtype == torch.float32:
         return x @ w
     if x.is_cuda and x.dtype == w.dtype:
-        out = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
+        out = MatmulF32.apply(x.reshape(-1, x.shape[-1]), w)
         return out.reshape(*x.shape[:-1], w.shape[-1])
     return x.float() @ w.float()
 
@@ -102,12 +130,11 @@ def bmatmul(a, b):
 
 
 def bmatmul_f32(a, b):
-    """Batched a @ b with an fp32 result (``bmm`` with ``out_dtype`` on the
-    card)."""
+    """Batched a @ b with an fp32 result (``MatmulF32`` on the card)."""
     if a.dtype == torch.float32 and b.dtype == torch.float32:
         return torch.bmm(a, b)
     if a.is_cuda and a.dtype == b.dtype:
-        return torch.bmm(a, b, out_dtype=torch.float32)
+        return MatmulF32.apply(a, b)
     return torch.bmm(a.float(), b.float())
 
 

@@ -2,7 +2,7 @@
 architecture family, with the reference's method names
 
     init(generator) -> the model, every weight drawn from ``generator``
-    loss(batch) -> (scalar, metrics)                 [forward only]
+    loss(batch) -> (scalar, metrics)        [differentiable; remat per cfg]
     forward(batch) -> (logits, aux)
     prefill(batch) -> (last logits, cache)           [inference prefill]
     init_cache(batch_size, max_seq) -> cache (a dict of tensors)
@@ -103,7 +103,7 @@ class BaseLM(L.Module):
         positions = self._positions(h.shape[1])
         aux = torch.zeros((), device=h.device)
         for stack in self._stacks():
-            h, a = B.decoder_stack(stack, h, positions)
+            h, a = B.decoder_stack(stack, h, positions, remat=self.cfg.remat)
             aux = aux + a
         h = self.final_norm(h, self.cfg.norm_eps)
         return self._unembed(h), aux
@@ -219,14 +219,14 @@ class WhisperModel(BaseLM):
         h = h + L.sinusoidal_positions(h.shape[1], cfg.d_model,
                                        h.device).to(h.dtype)
         for blk in self.enc_stack:
-            h = blk(h, None)
+            h = B.maybe_remat(blk, cfg.remat)(h, None)
         return self.enc_norm(h, cfg.norm_eps)
 
     def _decode_seq(self, enc, tokens):
         h = L.embed(self.emb, tokens)
         h = h + self.dec_pos[:tokens.shape[1]].to(h.dtype)
         for blk in self.dec_stack:
-            h = blk(h, enc, None)
+            h = B.maybe_remat(blk, self.cfg.remat)(h, enc, None)
         h = self.dec_norm(h, self.cfg.norm_eps)
         return L.unembed(self.emb, h)
 
@@ -289,7 +289,7 @@ class XLSTMModel(BaseLM):
     def forward(self, batch):
         h = L.embed(self.emb, batch["tokens"])
         for sup in self.stack:
-            h = sup(h)
+            h = B.maybe_remat(sup, self.cfg.remat)(h)
         h = self.final_norm(h, self.cfg.norm_eps)
         return self._unembed(h), torch.zeros((), device=h.device)
 
@@ -341,7 +341,8 @@ class ZambaModel(BaseLM):
         positions = self._positions(emb0.shape[1])
         h = emb0
         for sup in self.stack:
-            h = sup(h, self.shared, emb0, positions)
+            h = B.maybe_remat(sup, self.cfg.remat)(h, self.shared, emb0,
+                                                   positions)
         h = self.final_norm(h, self.cfg.norm_eps)
         return self._unembed(h), torch.zeros((), device=h.device)
 

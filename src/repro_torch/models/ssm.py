@@ -113,9 +113,14 @@ def _ssd_chunked(x, dt, A, B, C, chunk):
         dA = dtb * A                                        # [B,Q,H]
         cum = torch.cumsum(dA, dim=1)
         xdt = xb * dtb[..., None]
-        # intra-chunk: L[i,j] = exp(cum_i - cum_j), j <= i
+        # intra-chunk: L[i,j] = exp(cum_i - cum_j), j <= i.  Masked before
+        # the exp (to -inf, whose exp is the same 0): above the diagonal
+        # li grows with i - j, and an exp that overflows to inf would send
+        # 0 * inf = NaN into the gradient, as the reference's masking after
+        # the exp does (src/repro/models/ssm.py:92)
         li = cum[:, :, None, :] - cum[:, None, :, :]        # [B,Q,Q,H]
-        decay = torch.exp(li).masked_fill(~mask[None, :, :, None], 0.0)
+        decay = torch.exp(li.masked_fill(~mask[None, :, :, None],
+                                         -float("inf")))
         cb = torch.einsum("bin,bjn->bij", Cb, Bb)
         y_intra = torch.einsum("bij,bijh,bjhp->bihp", cb, decay, xdt)
         # inter-chunk from carried state
