@@ -194,13 +194,26 @@ Run from the root of a checkout, with no arguments: ``python3 chip_smoke.py``.
    reduced config in float32 on the card against the CPU (loss, grad norm
    and parameters within rtol/atol 1e-4, atol 2 lr where |g| is within
    that of 0).
+10b. Phase 3i, the LM substrate's sharding and analysis (no kernel of its
+   own): ``launch.dryrun`` on the (16, 16) production mesh for
+   smollm-135m train_4k, qwen1.5-110b prefill_32k and deepseek-v3-671b
+   decode_32k (subprocesses, a fake process group each), per-card peak
+   GiB, FLOPs, collective bytes by kind and roofline terms printed; the
+   card's own bf16 GEMM (8192^3) and device-copy (4 GiB) rates beside the
+   dry run's H100 constants; smollm-135m through ``launch.train.main`` on
+   a one-rank NCCL mesh, 10 steps in deterministic mode, bitwise the
+   mesh-less run (losses and checkpoint); and the dry run's (1, 1)
+   prediction of that step against the step on the card: local state
+   bytes equal, per-card FLOPs of the same counter within 1%, peak GiB
+   beside ``max_memory_allocated``.
 11. Prints the kernels JSON line (with ``launch_weighted_ms`` and
    ``launch_weighted_bound_ms`` per kernel: the sum over the kernel's
    launches on its path of each one's measured time and its bound, and for
    the extraction kernels ``served_launches_per_replay`` by bucket), a
    ``serve`` line of phase 3d's figures, a ``fleet`` line of phase 3e's,
    a ``mesh`` line of phase 3f's, an ``lm`` line of phase 3g's, a
-   ``train`` line of phase 3h's, the card's
+   ``train`` line of phase 3h's, an ``analysis`` line of phase 3i's, the
+   card's
    name and power
    limit, and last ``{"ok": true, "device": {...}}``.
 
@@ -211,7 +224,17 @@ fast, blur, scalespace and the matcher), the peak memory a card, Table 1
 per card count above 1 (``run_scaling`` over phase 3c's three RGBA
 scenes, one worker, beside the one-device sweep, which a mesh of one card
 runs; per-batch counts equal; each sweep's prefetcher alone and
-extraction alone), a ``mesh`` JSON line, the cards' names and power limits, and the last line.
+extraction alone), then the LM on the cards (``torchrun`` workers of this
+script, ``--lm-worker``): smollm-135m at full width, 20 steps on (4, 1)
+and (2, 2) against one card (losses within 2e-2, the loss falls, each
+rank's local state bytes equal to the dry run's for the same fake mesh,
+a checkpoint saved on (4, 1) restored on (2, 2) and on one card bitwise)
+and deepseek-v3-671b at full width cut to 4 layers (3 dense + 1 MoE of
+256 experts), 2 steps of B 4 x S 256 on (1, 4) with experts over
+``model`` (finite losses and grad norms; routes and capacity drops equal
+one card's on the same MoE input and router; peak GiB beside the dry
+run's), a ``mesh`` and an ``lm_mesh`` JSON line, the cards' names and
+power limits, and the last line.
 
 Any failure exits non-zero.  Without CUDA, or outside a checkout, it exits
 non-zero and prints no result.
@@ -331,6 +354,23 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_ARCH_STEPS = 4, 256, 2
 TRAIN_F32_TOL = dict(rtol=1e-4, atol=1e-4)   # card against CPU, float32
 TRAIN_F32_LR = 1e-3
 BF16_PEAK_FLOPS = 989e12            # H100 SXM dense bf16, data sheet
+# phase 3i, the LM substrate's sharding and analysis: launch.dryrun on the
+# (16, 16) production mesh for these cells (subprocesses: a process holds
+# one process group), the card's own rates beside the H100 constants,
+# smollm-135m through launch.train on a one-rank NCCL mesh (bitwise the
+# mesh-less run) and the dry run's (1, 1) prediction of that step
+DRYRUN_CELLS = (("smollm-135m", "train_4k"), ("qwen1.5-110b", "prefill_32k"),
+                ("deepseek-v3-671b", "decode_32k"))
+DRYRUN_TIMEOUT = 600
+MESH_TRAIN_STEPS = 10
+LAUNCH_B, LAUNCH_S = 8, 256        # launch/train.py's default batch
+# --mesh-cards: the LM on a mesh of cards (torchrun workers of this
+# script): smollm-135m at full width on (4, 1) and (2, 2), against one
+# card; deepseek-v3-671b at full width cut to 4 layers (3 dense + 1 MoE of
+# 256 experts) on (1, 4), experts over ``model`` (~15.1 B parameters: 169
+# GiB of weights, grads and fp32 m, v, which no one card holds)
+LM_MESH_STEPS, LM_MESH_TOL, LM_MESH_LR, LM_MESH_WARMUP = 20, 2e-2, 3e-3, 5
+DSV3_LAYERS, DSV3_STEPS, DSV3_B, DSV3_S = 4, 2, 4, 256
 # device kernel names of each wrapper's kernels (the profiler's keys)
 DEVICE_NAMES = {"harris": ("harris_kernel",), "fast": ("fast_tiled",),
                 "blur": ("blur_tiled", "blur_small"),
@@ -2518,6 +2558,536 @@ def train_phase(torch):
         shutil.rmtree(ckpt_root, ignore_errors=True)
     return figures
 
+# the dry run's prediction of one train step of ``arch`` (``layers`` deep,
+# 0: the config's) at B x S on a fake mesh of ``shape`` (its own process)
+_PREDICT = """
+import json, sys
+sys.path.insert(0, {src!r})
+from repro_torch.configs import ShapeConfig, get_config
+from repro_torch.launch.dryrun import lower_cell
+from repro_torch.launch.mesh import make_fake_mesh, release_mesh
+cfg = get_config({arch!r})
+if {layers}:
+    cfg = cfg.replace(n_layers={layers})
+mesh = make_fake_mesh({shape!r}, ("data", "model"))
+r = lower_cell(cfg, ShapeConfig("step", {s}, {b}, "train"), mesh)
+release_mesh()
+open({out!r}, "w").write(json.dumps(r))
+"""
+
+
+def start_predict(out, arch, shape, b, s, layers=0):
+    code = _PREDICT.format(src=str(ROOT / "src"), arch=arch, shape=shape,
+                           b=b, s=s, layers=layers, out=str(out))
+    return subprocess.Popen([sys.executable, "-c", code],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+
+
+def finish(proc, what, timeout=DRYRUN_TIMEOUT):
+    """Wait for a subprocess of this phase; fail with its output's end."""
+    try:
+        out, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise SystemExit(f"chip_smoke: {what} took over {timeout} s")
+    require(proc.returncode == 0,
+            f"{what} exited {proc.returncode}:\n{out[-3000:]}")
+    return out
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def local_state_bytes(state) -> int:
+    from repro_torch.launch.dryrun import _local_bytes
+    return _local_bytes(state)
+
+
+def card_rates(torch, dev):
+    """The card's own rates: a bf16 GEMM of 8192^3 and a device-to-device
+    copy of 4 GiB (bytes read + written over the time)."""
+    n = 8192
+    a = torch.randn(n, n, device=dev, dtype=torch.bfloat16)
+    b = torch.randn(n, n, device=dev, dtype=torch.bfloat16)
+    mm_ms = cuda_ms(lambda: a @ b)
+    del a, b
+    src = torch.empty(4 * 2 ** 30, dtype=torch.uint8, device=dev)
+    dst = torch.empty_like(src)
+    cp_ms = cuda_ms(lambda: dst.copy_(src))
+    del src, dst
+    torch.cuda.empty_cache()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    return dict(card=smi.stdout.strip().splitlines()[0],
+                bf16_matmul_8192_ms=mm_ms,
+                bf16_flops=2 * n ** 3 / (mm_ms / 1e3),
+                copy_4gib_ms=cp_ms,
+                copy_bytes_per_s=2 * 4 * 2 ** 30 / (cp_ms / 1e3))
+
+
+def counted_launch_step(torch, dev, mesh):
+    """One train step of launch/train.py's smollm-135m (B 8 x S 256) on
+    ``mesh``, eager on the card under the dry run's per-rank counter:
+    (FLOPs, local state bytes, peak bytes allocated)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import synthetic_lm_batch
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.distributed import specs as SP
+    from repro_torch.launch import train as T
+    from repro_torch.launch.analysis import OpCounter
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamW
+    from repro_torch.train.step import TrainStepConfig, make_train_step
+    cfg = get_config("smollm-135m")
+    model = build_model(cfg, dev).init(
+        torch.Generator(device=dev).manual_seed(0))
+    opt, scfg = AdamW(), TrainStepConfig(learning_rate=3e-3)
+    with T._on_mesh(mesh, cfg):
+        state, _ = T.place_state(model, opt, scfg, mesh)
+        nbytes = local_state_bytes(state)
+        batch = {k: torch.from_numpy(v).long().to(dev) for k, v in
+                 synthetic_lm_batch(LAUNCH_B, LAUNCH_S, cfg.vocab_size,
+                                    seed=0).items()}
+        batch = SH.distribute(batch, SP.to_named(
+            SP.batch_pspecs(batch, mesh), mesh), mesh)
+        step = make_train_step(model, opt, scfg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with OpCounter() as counter:
+            step(state, batch)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+    del model, state, batch, step
+    torch.cuda.empty_cache()
+    return counter.flops, nbytes, peak
+
+
+def same_checkpoints(a, b, what):
+    import numpy as np
+    za, zb = np.load(a / "tensors.npz"), np.load(b / "tensors.npz")
+    require(set(za.files) == set(zb.files), f"{what}: other leaves")
+    for k in za.files:
+        require(za[k].dtype == zb[k].dtype
+                and za[k].tobytes() == zb[k].tobytes(), f"{what}: {k} differs")
+    return len(za.files)
+
+
+def analysis_phase(torch):
+    """Phase 3i: the LM substrate's sharding and analysis on the card (see
+    the constants above).  Returns the phase's figures."""
+    import shutil
+
+    import torch.distributed as dist
+
+    from repro_torch.launch import analysis as AN
+    from repro_torch.launch import train as T
+    from repro_torch.launch.mesh import make_lm_host_mesh
+    dev = torch.device("cuda", torch.cuda.current_device())
+    root = ROOT / "build" / "chip_dryrun"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    procs = {f"{a} {s}": subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", a,
+         "--shape", s, "--out", str(root), "--force"], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for a, s in DRYRUN_CELLS}
+    predict = start_predict(root / "predict_1x1.json", "smollm-135m",
+                            (1, 1), LAUNCH_B, LAUNCH_S)
+    figures = {"card": card_rates(torch, dev),
+               "constants": dict(card=AN.CARD, peak_flops=AN.PEAK_FLOPS,
+                                 hbm_bytes_per_s=AN.HBM_BW,
+                                 link_bytes_per_s=AN.LINK_BW)}
+    r = figures["card"]
+    log(f"  the card's rates ({r['card']}): bf16 GEMM 8192^3 "
+        f"{r['bf16_matmul_8192_ms']:.3f}"
+        f" ms = {r['bf16_flops'] / 1e12:.1f} TFLOP/s (the dry run's constant "
+        f"{AN.PEAK_FLOPS / 1e12:.0f}); a 4 GiB device copy "
+        f"{r['copy_4gib_ms']:.3f} ms = {r['copy_bytes_per_s'] / 1e12:.3f} "
+        f"TB/s read + written (constant {AN.HBM_BW / 1e12:.2f}); links "
+        f"{AN.LINK_BW / 1e9:.0f} GB/s a card (not measured on one card)")
+
+    # smollm through launch.train, mesh-less and on a one-rank NCCL mesh
+    ck = ROOT / "build" / "chip_mesh_train"
+    shutil.rmtree(ck, ignore_errors=True)
+    args = TRAIN_MAIN + ["--steps", str(MESH_TRAIN_STEPS), "--ckpt-dir"]
+    torch.use_deterministic_algorithms(True)
+    try:
+        t1 = time.perf_counter()
+        plain = T.main(args + [str(ck / "plain")])
+        plain_s = time.perf_counter() - t1
+        dist.init_process_group("nccl",
+                                init_method=f"tcp://localhost:{free_port()}",
+                                rank=0, world_size=1)
+        try:
+            t1 = time.perf_counter()
+            on_mesh = T.main(args + [str(ck / "mesh")])
+            mesh_s = time.perf_counter() - t1
+            require(on_mesh == plain, f"one-rank mesh: losses differ from "
+                    f"the mesh-less run: {on_mesh} vs {plain}")
+            step_dir = f"step_{MESH_TRAIN_STEPS:010d}"
+            leaves = same_checkpoints(ck / "plain" / step_dir,
+                                      ck / "mesh" / step_dir,
+                                      "one-rank mesh against mesh-less")
+            mesh = make_lm_host_mesh()
+            flops, nbytes, peak = counted_launch_step(torch, dev, mesh)
+        finally:
+            dist.destroy_process_group()
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(ck, ignore_errors=True)
+    finish(predict, "the dry run's (1, 1) prediction")
+    pred = json.loads((root / "predict_1x1.json").read_text())
+    require(nbytes == pred["state_bytes_per_device"],
+            f"local state bytes {nbytes} != the dry run's "
+            f"{pred['state_bytes_per_device']}")
+    rel = abs(flops - pred["cost"]["hlo_flops"]) / pred["cost"]["hlo_flops"]
+    require(rel <= 0.01, f"per-device FLOPs {flops} vs the dry run's "
+            f"{pred['cost']['hlo_flops']} ({rel:.2%})")
+    figures["one_rank_mesh"] = dict(
+        steps=MESH_TRAIN_STEPS, losses=plain, bitwise=True,
+        checkpoint_leaves=leaves, plain_s=plain_s, mesh_s=mesh_s)
+    figures["predicted_1x1"] = dict(
+        state_bytes=nbytes, flops_card=flops,
+        flops_dryrun=pred["cost"]["hlo_flops"], flops_rel=rel,
+        peak_gib_dryrun=pred["memory"]["peak_bytes_per_device"] / 2 ** 30,
+        peak_gib_card=peak / 2 ** 30)
+    log(f"  smollm-135m through launch.train, {MESH_TRAIN_STEPS} steps "
+        f"(deterministic): on a one-rank NCCL mesh bitwise the mesh-less "
+        f"run (losses, {leaves} checkpoint leaves; {mesh_s:.1f} s against "
+        f"{plain_s:.1f} s)")
+    p = figures["predicted_1x1"]
+    log(f"  the dry run's (1, 1) step against the card's: local state "
+        f"{nbytes} bytes equal; FLOPs {flops:.6e} counted on the card vs "
+        f"{p['flops_dryrun']:.6e} ({rel:.4%}); peak "
+        f"{p['peak_gib_dryrun']:.2f} GiB predicted, "
+        f"{p['peak_gib_card']:.2f} GiB max_memory_allocated")
+    cells = {}
+    for name, proc in procs.items():
+        finish(proc, f"launch.dryrun {name}")
+        a, s = name.split()
+        d = json.loads((root / f"16x16__{a}__{s}.json").read_text())
+        cells[name] = dict(
+            trace_s=d["compile_s"], peak_gib=d["memory"][
+                "peak_bytes_per_device"] / 2 ** 30,
+            flops=d["cost"]["hlo_flops"], hbm_bytes=d["cost"]["hlo_bytes"],
+            collective_bytes=d["collective_bytes"],
+            roofline=d["roofline"])
+        c = cells[name]
+        log(f"  dry run {name} on 16x16 (the H100's constants): "
+            f"{c['peak_gib']:.2f} GiB a card, {c['flops']:.3e} FLOPs, "
+            f"collectives {c['collective_bytes']}, compute "
+            f"{c['roofline']['compute_s']:.3e} s, memory "
+            f"{c['roofline']['memory_s']:.3e} s, collective "
+            f"{c['roofline']['collective_s']:.3e} s ({c['trace_s']} s)")
+    figures["dryrun"] = cells
+    figures["wall_s"] = time.perf_counter() - t0
+    shutil.rmtree(root, ignore_errors=True)
+    return figures
+
+
+def lm_worker_main(kind: str, shape, out_dir: Path) -> int:
+    """One rank of a ``torchrun`` LM run on a mesh of cards (``--mesh-cards``):
+    ``smollm`` trains smollm-135m LM_MESH_STEPS steps at full width (a
+    (4, 1) run saves its final state; a (2, 2) run restores it after
+    training and holds it bitwise); ``dsv3`` trains deepseek-v3-671b cut to
+    DSV3_LAYERS layers DSV3_STEPS steps and keeps its MoE layer's input,
+    router and routes of the first step.  Writes rank 0's figures."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    sys.path.insert(0, str(ROOT / "src"))
+    import numpy as np
+
+    from repro_torch.checkpoint import CheckpointManager, flatten_state
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import synthetic_lm_batch
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.distributed import specs as SP
+    from repro_torch.launch import train as T
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamW, cosine_schedule
+    from repro_torch.train.step import TrainStepConfig, make_train_step
+    torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
+    dev = torch.device("cuda", torch.cuda.current_device())
+    dist.init_process_group("nccl")
+    rank = dist.get_rank()
+    mesh = SH.LMMesh.from_device_mesh(init_device_mesh(
+        "cuda", shape, mesh_dim_names=("data", "model")))
+    if kind == "smollm":
+        cfg, steps, b, s = (get_config("smollm-135m"), LM_MESH_STEPS,
+                            LAUNCH_B, LAUNCH_S)
+    else:
+        cfg, steps, b, s = (get_config("deepseek-v3-671b").replace(
+            n_layers=DSV3_LAYERS), DSV3_STEPS, DSV3_B, DSV3_S)
+    t0 = time.perf_counter()
+    model = build_model(cfg, dev).init(
+        torch.Generator(device=dev).manual_seed(0))
+    opt = AdamW()
+    scfg = TrainStepConfig(learning_rate=LM_MESH_LR)
+    seen = {}
+    with T._on_mesh(mesh, cfg):
+        state, shardings = T.place_state(model, opt, scfg, mesh)
+        torch.cuda.empty_cache()
+        init_s = time.perf_counter() - t0
+        nbytes = local_state_bytes(state)
+        moes = [m for m in model.modules() if hasattr(m, "routes")]
+        if moes:
+            moes[0].routes = []
+
+            def keep_input(mod, args):      # the step updates the router
+                if "x" not in seen:         # in place: keep copies
+                    seen.update(x=args[0].full_tensor().detach().clone(),
+                                router=mod.router.full_tensor().detach()
+                                .clone())
+            hook = moes[0].register_forward_pre_hook(keep_input)
+        step = make_train_step(model, opt, scfg, cosine_schedule(
+            LM_MESH_LR, warmup_steps=LM_MESH_WARMUP, total_steps=steps))
+        torch.cuda.reset_peak_memory_stats()
+        losses, norms, times = [], [], []
+        for i in range(steps):
+            batch = {k: torch.from_numpy(v).long().to(dev) for k, v in
+                     synthetic_lm_batch(b, s, cfg.vocab_size,
+                                        seed=i).items()}
+            batch = SH.distribute(batch, SP.to_named(
+                SP.batch_pspecs(batch, mesh), mesh), mesh)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t1)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+            if moes and i == 0:
+                hook.remove()
+                idx, keep = moes[0].routes[0]     # (remat may rerun it)
+                moes[0].routes = None
+                seen.update(idx=idx.cpu(), keep=keep.cpu(),
+                            router=seen["router"].cpu(), x=seen["x"].cpu())
+        peak = torch.cuda.max_memory_allocated()
+        out = dict(kind=kind, mesh=list(shape), losses=losses,
+                   grad_norms=norms, step_s=times, init_s=init_s,
+                   state_bytes=nbytes, peak_bytes=peak,
+                   tokens=b * s)
+        ck = CheckpointManager(out_dir / "ckpt_4x1")
+        if kind == "smollm" and tuple(shape) == (4, 1):
+            ck.save(state, steps)                  # rank 0 writes
+        elif kind == "smollm":
+            restored, _ = ck.restore(state, shardings=shardings, mesh=mesh)
+            z = np.load(ck.root / f"step_{steps:010d}" / "tensors.npz")
+            for k, t in flatten_state(restored):
+                full = t.full_tensor()
+                if full.dtype == torch.bfloat16:
+                    want = torch.from_numpy(z[k].view(np.int16)).view(
+                        torch.bfloat16)
+                else:
+                    want = torch.from_numpy(np.asarray(z[k]))
+                require(tuple(t.placements) == tuple(_tree_at(shardings, k))
+                        and torch.equal(full.cpu(), want),
+                        f"restore (4, 1) -> {shape}: {k}")
+            out["restored_leaves"] = len(z.files)
+    all_bytes = [None] * dist.get_world_size()
+    dist.all_gather_object(all_bytes, (nbytes, peak))
+    out["state_bytes_all"] = [x[0] for x in all_bytes]
+    out["peak_bytes_all"] = [x[1] for x in all_bytes]
+    if rank == 0:
+        tag = "x".join(map(str, shape))
+        (out_dir / f"{kind}_{tag}.json").write_text(json.dumps(out))
+        if seen:
+            torch.save(seen, out_dir / f"{kind}_{tag}_routes.pt")
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def _tree_at(tree, key):
+    for part in key.split("/"):
+        tree = tree[part]
+    return tree
+
+
+def torchrun_lm(kind, shape, out_dir, n):
+    """``chip_smoke.py --lm-worker`` on ``n`` cards under torchrun."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(n), str(ROOT / "chip_smoke.py"),
+           "--lm-worker", kind, "x".join(map(str, shape)), str(out_dir)]
+    t0 = time.perf_counter()
+    done = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    require(done.returncode == 0, f"torchrun {kind} {shape} exited "
+            f"{done.returncode}:\n{done.stdout[-2000:]}\n"
+            f"{done.stderr[-4000:]}")
+    tag = "x".join(map(str, shape))
+    out = json.loads((out_dir / f"{kind}_{tag}.json").read_text())
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def one_card_smollm(torch, dev):
+    """The one-card run the mesh runs are held to: the worker's steps,
+    batches and schedule, mesh-less."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import synthetic_lm_batch
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamW, cosine_schedule
+    from repro_torch.train.step import (TrainStepConfig, make_init_fn,
+                                        make_train_step)
+    cfg = get_config("smollm-135m")
+    model = build_model(cfg, dev)
+    opt, scfg = AdamW(), TrainStepConfig(learning_rate=LM_MESH_LR)
+    state = make_init_fn(model, opt, scfg)(
+        torch.Generator(device=dev).manual_seed(0))
+    step = make_train_step(model, opt, scfg, cosine_schedule(
+        LM_MESH_LR, warmup_steps=LM_MESH_WARMUP, total_steps=LM_MESH_STEPS))
+    losses, times = [], []
+    for i in range(LM_MESH_STEPS):
+        batch = {k: torch.from_numpy(v).long().to(dev) for k, v in
+                 synthetic_lm_batch(LAUNCH_B, LAUNCH_S, cfg.vocab_size,
+                                    seed=i).items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+    del model, state, step
+    torch.cuda.empty_cache()
+    return losses, times
+
+
+def lm_mesh_phase(torch, dev, n_cards):
+    """``--mesh-cards``: the LM on a mesh of 4 cards (see the constants
+    above).  Returns the figures."""
+    import shutil
+
+    import numpy as np
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as M
+    require(n_cards >= 4, "the LM mesh runs need 4 cards")
+    root = ROOT / "build" / "chip_lm_mesh"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    preds = {tag: start_predict(root / f"predict_{tag}.json", arch, shape,
+                                b, s, layers)
+             for tag, arch, shape, b, s, layers in (
+                 ("smollm_4x1", "smollm-135m", (4, 1), LAUNCH_B, LAUNCH_S, 0),
+                 ("smollm_2x2", "smollm-135m", (2, 2), LAUNCH_B, LAUNCH_S, 0),
+                 ("dsv3_1x4", "deepseek-v3-671b", (1, 4), DSV3_B, DSV3_S,
+                  DSV3_LAYERS))}
+    one, one_times = one_card_smollm(torch, dev)
+    cards = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()
+    card = f"{len(cards)} x {cards[0]}"
+    figures = {"cards": cards, "one_card": dict(
+        losses=one, step_ms=1e3 * statistics.median(one_times[1:]))}
+    for shape in ((4, 1), (2, 2)):
+        r = torchrun_lm("smollm", shape, root, 4)
+        tag = "x".join(map(str, shape))
+        diff = max(abs(a - b) for a, b in zip(r["losses"], one))
+        require(diff <= LM_MESH_TOL, f"smollm {tag}: losses differ from one "
+                f"card by {diff} > {LM_MESH_TOL}")
+        require(np.mean(r["losses"][-5:]) < np.mean(r["losses"][:5]),
+                f"smollm {tag}: the loss did not fall")
+        finish(preds[f"smollm_{tag}"], f"prediction {tag}")
+        pred = json.loads((root / f"predict_smollm_{tag}.json").read_text())
+        require(all(x == pred["state_bytes_per_device"]
+                    for x in r["state_bytes_all"]),
+                f"smollm {tag}: local state bytes {r['state_bytes_all']} != "
+                f"the dry run's {pred['state_bytes_per_device']}")
+        step_s = statistics.median(r["step_s"][1:])
+        figures[f"smollm_{tag}"] = dict(
+            losses=r["losses"], max_loss_diff=diff,
+            step_ms=1e3 * step_s, tokens_per_s=r["tokens"] / step_s,
+            peak_gib=[p / 2 ** 30 for p in r["peak_bytes_all"]],
+            peak_gib_dryrun=pred["memory"]["peak_bytes_per_device"] / 2 ** 30,
+            state_bytes=r["state_bytes_all"][0], wall_s=r["wall_s"])
+        f = figures[f"smollm_{tag}"]
+        log(f"  smollm-135m on {tag} ({card}; {LM_MESH_STEPS} steps, B "
+            f"{LAUNCH_B} x S {LAUNCH_S}): losses within {diff:.4g} of one "
+            f"card, "
+            f"{f['step_ms']:.1f} ms a step ({f['tokens_per_s']:.0f} tokens/s;"
+            f" one card {figures['one_card']['step_ms']:.1f} ms), peak "
+            f"{max(f['peak_gib']):.2f} GiB a card (dry run "
+            f"{f['peak_gib_dryrun']:.2f}), local state "
+            f"{f['state_bytes']} bytes = the dry run's")
+    figures["smollm_2x2"]["restored_leaves"] = r["restored_leaves"]
+    ck = CheckpointManager(root / "ckpt_4x1")
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamW
+    model = build_model(get_config("smollm-135m"), dev)
+    params = dict(model.named_parameters())
+    target = {"params": params, "opt": AdamW().init(params),
+              "step": torch.zeros((), dtype=torch.int32, device=dev)}
+    restored, _ = ck.restore(target)
+    z = np.load(ck.root / f"step_{LM_MESH_STEPS:010d}" / "tensors.npz")
+    from repro_torch.checkpoint import flatten_state
+    for k, t in flatten_state(restored):
+        got = t.detach().cpu()
+        got = (got.view(torch.int16).numpy() if got.dtype == torch.bfloat16
+               else got.numpy())
+        want = z[k].view(np.int16) if z[k].dtype.kind == "V" else z[k]
+        require(np.array_equal(got, want), f"restore (4, 1) -> one card: {k}")
+    del model, params, target, restored
+    torch.cuda.empty_cache()
+    log(f"  a checkpoint saved on (4, 1) restores on (2, 2) and on one card "
+        f"bitwise ({len(z.files)} leaves)")
+
+    r = torchrun_lm("dsv3", (1, 4), root, 4)
+    require(all(np.isfinite(r["losses"] + r["grad_norms"])),
+            f"deepseek-v3 (1, 4): a loss or grad norm is not finite: {r}")
+    seen = torch.load(root / "dsv3_1x4_routes.pt")
+    cfg = get_config("deepseek-v3-671b").replace(n_layers=DSV3_LAYERS)
+    import types
+    x = seen["x"].to(dev)
+    xt = x.reshape(-1, x.shape[-1])
+    _, idx, _ = M.route(types.SimpleNamespace(router=seen["router"].to(dev)),
+                        cfg, xt)
+    *_, keep = M.dispatch(idx, cfg.moe.n_experts,
+                          M.capacity(cfg, xt.shape[0]))
+    require(torch.equal(idx.cpu(), seen["idx"])
+            and torch.equal(keep.cpu(), seen["keep"]),
+            "deepseek-v3 (1, 4): the mesh's routes or drops differ from one "
+            "card's on the same MoE input and router")
+    finish(preds["dsv3_1x4"], "prediction dsv3 1x4")
+    pred = json.loads((root / "predict_dsv3_1x4.json").read_text())
+    step_s = statistics.median(r["step_s"][1:]) if len(r["step_s"]) > 1 \
+        else r["step_s"][0]
+    figures["dsv3_1x4"] = dict(
+        losses=r["losses"], grad_norms=r["grad_norms"],
+        dropped_pairs=int((~seen["keep"]).sum()),
+        pairs=int(seen["keep"].numel()), step_ms=1e3 * step_s,
+        tokens_per_s=r["tokens"] / step_s, init_s=r["init_s"],
+        peak_gib=[p / 2 ** 30 for p in r["peak_bytes_all"]],
+        peak_gib_dryrun=pred["memory"]["peak_bytes_per_device"] / 2 ** 30,
+        state_gib=[b / 2 ** 30 for b in r["state_bytes_all"]],
+        state_gib_dryrun=pred["state_bytes_per_device"] / 2 ** 30,
+        n_params=pred["n_params"], wall_s=r["wall_s"])
+    f = figures["dsv3_1x4"]
+    log(f"  deepseek-v3-671b at full width, {DSV3_LAYERS} layers "
+        f"({f['n_params'] / 1e9:.2f} B parameters) on (1, 4) ({card}), B "
+        f"{DSV3_B} x S "
+        f"{DSV3_S}: losses {r['losses']}, grad norms {r['grad_norms']} "
+        f"finite; routes and {f['dropped_pairs']} of {f['pairs']} pairs "
+        f"dropped = one card's on the same MoE input; {f['step_ms']:.0f} ms "
+        f"a step ({f['tokens_per_s']:.0f} tokens/s), state "
+        f"{max(f['state_gib']):.2f} GiB a card (dry run "
+        f"{f['state_gib_dryrun']:.2f}), peak {max(f['peak_gib']):.2f} GiB a "
+        f"card (dry run {f['peak_gib_dryrun']:.2f})")
+    shutil.rmtree(root, ignore_errors=True)
+    return figures
+
+
 
 def mesh_cards_main(n_cards: int) -> int:
     """``--mesh-cards N``: the build, the data mesh on ``data_mesh(m)`` for
@@ -2585,12 +3155,17 @@ def mesh_cards_main(n_cards: int) -> int:
     log(f"phase 3f (data mesh, {n_cards} cards): "
         f"{time.perf_counter() - t0:.1f} s")
     shutil.rmtree(stitch_store, ignore_errors=True)
+    t0 = time.perf_counter()
+    log(f"the LM on a mesh of {n_cards} cards (torchrun workers):")
+    lm_figures = lm_mesh_phase(torch, dev, n_cards)
+    log(f"LM mesh runs: {time.perf_counter() - t0:.1f} s")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     for line in smi.stdout.strip().splitlines():
         log("card: " + line)
     print("mesh " + json.dumps(figures))
+    print("lm_mesh " + json.dumps(lm_figures))
     print(smi.stdout.strip().splitlines()[0])
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3327,6 +3902,12 @@ def main() -> int:
     train_figures = train_phase(torch)
     phase_done("3h (LM training path)")
 
+    # ---- 3i. the LM substrate's sharding and analysis ----------------------
+    log("phase 3i: the LM sharding and analysis (the dry run on the "
+        "production mesh, the card's rates, a one-rank NCCL mesh):")
+    analysis_figures = analysis_phase(torch)
+    phase_done("3i (LM sharding and analysis)")
+
     # ---- 4. timings ---------------------------------------------------------
     log("timings (median of %d, CUDA events around one call; [device time "
         "per call under torch.profiler]):" % REPS)
@@ -3667,6 +4248,7 @@ def main() -> int:
     log("mesh " + json.dumps(mesh_figures))
     log("lm " + json.dumps(lm_figures))
     log("train " + json.dumps(train_figures))
+    log("analysis " + json.dumps(analysis_figures))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
@@ -3681,6 +4263,9 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--mesh-cards"] and len(sys.argv) == 3:
         sys.exit(mesh_cards_main(int(sys.argv[2])))
+    if sys.argv[1:2] == ["--lm-worker"] and len(sys.argv) == 5:
+        sys.exit(lm_worker_main(sys.argv[2], tuple(
+            int(n) for n in sys.argv[3].split("x")), Path(sys.argv[4])))
     if sys.argv[1:]:
         print("usage: chip_smoke.py [--mesh-cards N]", file=sys.stderr)
         sys.exit(2)

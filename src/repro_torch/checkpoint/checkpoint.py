@@ -8,6 +8,10 @@ of ``repro.checkpoint.checkpoint``), in the reference's on-disk layout:
 
 A save writes a tmp directory and renames it into place, so a half-written
 checkpoint is never visible; the oldest beyond ``keep_n`` are pruned.
+On a mesh the files hold the logical tensors: every rank gathers each
+DTensor leaf (``full_tensor``), rank 0 alone writes, and a restore with
+``shardings`` places what it reads onto the current mesh, whatever mesh
+wrote it (an elastic restore).
 numpy has no bfloat16 here, so a bf16 leaf is stored as the 2-byte void
 view that the reference's files hold for it (its crc over those bytes, its
 manifest dtype "bfloat16"): either package reads the other's files.
@@ -47,7 +51,11 @@ def _unflatten(tree, leaves, prefix=""):
 
 def _to_host(t: torch.Tensor) -> np.ndarray:
     """A host copy of ``t`` (a blocking copy, never a view of a CPU
-    tensor that training goes on writing)."""
+    tensor that training goes on writing); of a DTensor, its logical
+    value (a collective: every rank calls it)."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(t, DTensor):
+        t = t.full_tensor()
     t = t.detach().to("cpu", copy=True)
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(_BF16_VIEW)
@@ -67,6 +75,29 @@ def _from_host(arr: np.ndarray, dtype_name: str) -> torch.Tensor:
     return torch.from_numpy(np.array(arr, dtype=np.dtype(dtype_name)))
 
 
+def _writer() -> bool:
+    """Whether this process writes: rank 0 of a process group, or the only
+    process."""
+    import torch.distributed as dist
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _leaf(tree, key: str):
+    for part in key.split("/"):
+        tree = tree[part]
+    return tree
+
+
+def _place(t: torch.Tensor, mesh, placements):
+    """A logical tensor (the same on every rank) as a DTensor of
+    ``placements`` on ``mesh``, on the mesh's device."""
+    from torch.distributed.tensor import distribute_tensor
+    kind = mesh.device_mesh.device_type
+    dev = (torch.device(kind, torch.cuda.current_device()) if kind == "cuda"
+           else torch.device(kind))
+    return distribute_tensor(t.to(dev), mesh.device_mesh, placements)
+
+
 def _crc(a: np.ndarray) -> int:
     return zlib.crc32(np.ascontiguousarray(a).tobytes()) & 0xffffffff
 
@@ -80,11 +111,14 @@ class CheckpointManager:
 
     # ---------------- save ---------------------------------------------------
     def save(self, state, step: int, async_: bool = False):
+        """Every rank of a mesh calls it; rank 0 writes."""
         # copied to the host now, so that training can go on under async
         host, dtypes = {}, {}
         for k, t in flatten_state(state):
             host[k] = _to_host(t)
             dtypes[k] = _dtype_name(host[k], t)
+        if not _writer():
+            return
         if async_:
             self.wait()
             self._thread = threading.Thread(
@@ -130,10 +164,13 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def restore(self, target, step: Optional[int] = None, device=None,
-                verify: bool = True):
+                verify: bool = True, shardings=None, mesh=None):
         """Restore into the structure of ``target`` (a nested dict of
         tensors): new tensors of each target leaf's dtype, on ``device`` if
-        given, else on the target leaf's device.  Returns (state, step)."""
+        given, else on the target leaf's device.  ``shardings``: a matching
+        tree of DTensor placements on the `LMMesh` ``mesh`` (an elastic
+        restore onto the current mesh: each leaf becomes a DTensor).
+        Returns (state, step)."""
         step = self.latest_step() if step is None else step
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {self.root}")
@@ -152,6 +189,10 @@ class CheckpointManager:
                     raise ValueError(
                         f"shape mismatch for {key}: ckpt {tuple(t.shape)} "
                         f"vs target {tuple(ref.shape)}")
-                leaves[key] = t.to(device=device or ref.device,
-                                   dtype=ref.dtype)
+                if shardings is not None:
+                    leaves[key] = _place(t.to(dtype=ref.dtype), mesh,
+                                         _leaf(shardings, key))
+                else:
+                    leaves[key] = t.to(device=device or ref.device,
+                                       dtype=ref.dtype)
         return _unflatten(target, leaves), step

@@ -3,8 +3,14 @@
 ``single_chunk()``: the reference's roofline correction pass sets it so that
 every time-axis chunked scan (online-softmax attention, SSD chunks, mLSTM
 chunks) is unrolled and counted in full.  The port's chunk loops are Python
-loops already, so no numerics read the flag; it is kept, thread-local as in
-the reference, for the sharding and analysis slice that will count costs.
+loops, which `launch.analysis.OpCounter` counts in full already, so no
+numerics read the flag; `launch.correction.measure` sets it, as the
+reference's does.
+
+``card_routes()``: the layers take the card's routes (a bf16 GEMM with fp32
+accumulation, ``MatmulF32``) on tensors of any device, so that the dry run
+counts the card's program on fake CPU tensors where torch has no CUDA.
+Only a trace on fake tensors sets it: a CPU has no such GEMM.
 """
 from __future__ import annotations
 
@@ -26,3 +32,17 @@ def single_chunk():
         yield
     finally:
         _state.single_chunk = prev
+
+
+def card_routes_active() -> bool:
+    return getattr(_state, "card_routes", False)
+
+
+@contextlib.contextmanager
+def card_routes():
+    prev = getattr(_state, "card_routes", False)
+    _state.card_routes = True
+    try:
+        yield
+    finally:
+        _state.card_routes = prev

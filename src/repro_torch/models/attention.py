@@ -15,10 +15,12 @@ K/V (or MLA latent) into the cache tensors they are given, in place.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 
+from repro_torch.distributed.sharding import batch_local
 from repro_torch.models import layers as L
 
 NEG_INF = -1e30
@@ -33,7 +35,11 @@ def _expand_kv(k, n_rep):
     h // n_rep (GQA)."""
     if n_rep == 1:
         return k
-    return k.repeat_interleave(n_rep, dim=2)
+    b, s, kvh, d = k.shape
+    # an expand and a copy (``repeat_interleave`` of a DTensor decomposes
+    # into a data-dependent op that a fake tensor cannot trace)
+    return k[:, :, :, None, :].expand(b, s, kvh, n_rep, d).reshape(
+        b, s, kvh * n_rep, d)
 
 
 def _heads_first(t):
@@ -96,17 +102,26 @@ def attention_online(q, k, v, *, causal, q_offset=0, chunk=1024):
 
 
 def attention(q, k, v, *, causal, q_offset=0):
-    if k.shape[1] >= ONLINE_ATTN_MIN_SEQ:
-        return attention_online(q, k, v, causal=causal, q_offset=q_offset)
-    return attention_einsum(q, k, v, causal=causal, q_offset=q_offset)
+    """On a mesh, each rank attends its own (batch, head) blocks."""
+    fn = attention_online if k.shape[1] >= ONLINE_ATTN_MIN_SEQ \
+        else attention_einsum
+    return batch_local(functools.partial(fn, causal=causal,
+                                         q_offset=q_offset),
+                       q, k, v, dims=(0, 2))
 
 
 def decode_attention(q, k_cache, v_cache, pos):
     """Single-token decode: q [B,1,H,hd] vs cache [B,Smax,KVH,hd].
 
     Every slot is read; slots past ``pos`` are masked (the cache may be
-    partially filled), so the cost follows the cache's size.
+    partially filled), so the cost follows the cache's size.  On a mesh,
+    each rank attends its own batch rows.
     """
+    return batch_local(functools.partial(_decode_attention, pos=pos),
+                       q, k_cache, v_cache)
+
+
+def _decode_attention(q, k_cache, v_cache, pos):
     b, smax, kvh, hd = k_cache.shape
     h = q.shape[2]
     k = _expand_kv(k_cache, h // kvh)
@@ -152,9 +167,9 @@ class GQA(L.Module):
         v = L.matmul(x, self.wv)
         if cfg.qkv_bias:
             q, k, v = q + self.bq, k + self.bk, v + self.bv
-        q = q.view(b, s, cfg.n_heads, hd)
-        k = k.view(b, s, cfg.n_kv_heads, hd)
-        v = v.view(b, s, cfg.n_kv_heads, hd)
+        q = L.heads(q, cfg.n_heads, hd)
+        k = L.heads(k, cfg.n_kv_heads, hd)
+        v = L.heads(v, cfg.n_kv_heads, hd)
         if cfg.rope_theta:
             q = L.apply_rope(q, positions, cfg.rope_theta)
             k = L.apply_rope(k, positions, cfg.rope_theta)
@@ -204,8 +219,8 @@ class CrossAttention(L.Module):
         """The frozen K/V of ``enc_out``: two [B,Se,H,hd]."""
         b, se, _ = enc_out.shape
         hd = self.cfg.resolved_head_dim
-        k = L.matmul(enc_out, self.wk).view(b, se, self.cfg.n_heads, hd)
-        v = L.matmul(enc_out, self.wv).view(b, se, self.cfg.n_heads, hd)
+        k = L.heads(L.matmul(enc_out, self.wk), self.cfg.n_heads, hd)
+        v = L.heads(L.matmul(enc_out, self.wv), self.cfg.n_heads, hd)
         return k, v
 
     def forward(self, x, enc_out):
@@ -215,7 +230,7 @@ class CrossAttention(L.Module):
         """Decode-time cross attention against a precomputed K/V."""
         b, s, _ = x.shape
         hd = self.cfg.resolved_head_dim
-        q = L.matmul(x, self.wq).view(b, s, self.cfg.n_heads, hd)
+        q = L.heads(L.matmul(x, self.wq), self.cfg.n_heads, hd)
         o = attention(q, k, v, causal=False)
         return L.matmul(o.reshape(b, s, -1), self.wo)
 
@@ -267,8 +282,8 @@ class MLA(L.Module):
         h = cfg.n_heads
         q_nope, q_rope = self._q(x, positions)
         c_kv, k_rope = self._latent(x, positions)
-        k_nope = L.matmul(c_kv, self.wuk).view(b, s, h, m.qk_nope_head_dim)
-        v = L.matmul(c_kv, self.wuv).view(b, s, h, m.v_head_dim)
+        k_nope = L.heads(L.matmul(c_kv, self.wuk), h, m.qk_nope_head_dim)
+        v = L.heads(L.matmul(c_kv, self.wuv), h, m.v_head_dim)
         q = torch.cat([q_nope, q_rope], dim=-1)
         k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
             b, s, h, m.qk_rope_head_dim)], dim=-1)

@@ -14,6 +14,7 @@ enabled, as the reference wraps each scan body in ``jax.checkpoint``.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import torch
@@ -21,6 +22,7 @@ from torch import nn
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from repro_torch.distributed.sharding import shard_activation
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
@@ -58,6 +60,27 @@ def _slice(cache, i):
             for k, v in cache.items()}
 
 
+@contextlib.contextmanager
+def batch_sharded(cache):
+    """A layer's cache for its decode.  On a mesh, each DTensor leaf
+    sharded otherwise than on its batch (the sequence- or head-sharded
+    KV of ``specs.cache_pspecs``) is gathered to the "kv_cache" layout
+    for the step, and written back into its own placements after it."""
+    moved = []
+
+    def gather(t):
+        if isinstance(t, dict):
+            return {k: gather(v) for k, v in t.items()}
+        g = shard_activation(t, "kv_cache")
+        if g is not t:
+            moved.append((t, g))
+        return g
+
+    yield gather(cache)
+    for t, g in moved:
+        t.copy_(g.redistribute(t.device_mesh, t.placements))
+
+
 # ===========================================================================
 # decoder block: (GQA | MLA) attention + (SwiGLU | MoE) FFN, pre-RMSNorm
 # ===========================================================================
@@ -90,7 +113,8 @@ class DecoderBlock(L.Module):
             a, _, _ = self.attn(hn, positions, causal=causal)
         else:
             a = self.attn(hn, positions, causal=causal)
-        return self._ffn(h + a)
+        h, aux = self._ffn(shard_activation(h + a, "hidden"))
+        return shard_activation(h, "hidden"), aux
 
     def decode(self, h, cache, pos):
         """Single-token decode against this layer's cache, written in place."""
@@ -124,7 +148,8 @@ def decoder_stack(blocks, h, positions, *, causal=True, remat="nothing"):
 
 def decoder_stack_decode(blocks, h, caches, pos):
     for i, blk in enumerate(blocks):
-        h = blk.decode(h, _slice(caches, i), pos)
+        with batch_sharded(_slice(caches, i)) as c:
+            h = blk.decode(h, c, pos)
     return h, caches
 
 
@@ -152,7 +177,7 @@ class EncoderBlock(L.Module):
     def forward(self, h, positions):
         eps = self.cfg.norm_eps
         h = h + self.attn(self.ln1(h, eps), positions, causal=False)
-        return h + self.mlp(self.ln2(h, eps))
+        return shard_activation(h + self.mlp(self.ln2(h, eps)), "hidden")
 
 
 # ===========================================================================
@@ -173,7 +198,7 @@ class XDecBlock(L.Module):
         eps = self.cfg.norm_eps
         h = h + self.attn(self.ln1(h, eps), positions, causal=True)
         h = h + self.xattn(self.ln_x(h, eps), enc_out)
-        return h + self.mlp(self.ln2(h, eps))
+        return shard_activation(h + self.mlp(self.ln2(h, eps)), "hidden")
 
     def decode(self, h, cache, pos):
         """cache: {'k','v' (self, written in place), 'xk','xv' (frozen)}."""
@@ -208,7 +233,8 @@ class XLSTMSuper(L.Module):
         eps = self.cfg.norm_eps
         for pm in self.mlstm:
             h = h + pm(pm.norm(h, eps))
-        return h + self.slstm(self.slstm.norm(h, eps))
+        return shard_activation(h + self.slstm(self.slstm.norm(h, eps)),
+                                "hidden")
 
     def decode(self, h, state):
         eps = self.cfg.norm_eps
@@ -242,9 +268,9 @@ class ZambaShared(L.Module):
         hcat = self.ln(torch.cat([h, emb0], dim=-1), cfg.norm_eps)
         b, s, _ = hcat.shape
         hd = cfg.resolved_head_dim
-        q = L.matmul(hcat, self.wq).view(b, s, cfg.n_heads, hd)
-        k = L.matmul(hcat, self.wk).view(b, s, cfg.n_kv_heads, hd)
-        v = L.matmul(hcat, self.wv).view(b, s, cfg.n_kv_heads, hd)
+        q = L.heads(L.matmul(hcat, self.wq), cfg.n_heads, hd)
+        k = L.heads(L.matmul(hcat, self.wk), cfg.n_kv_heads, hd)
+        v = L.heads(L.matmul(hcat, self.wv), cfg.n_kv_heads, hd)
         q = L.apply_rope(q, positions, cfg.rope_theta)
         k = L.apply_rope(k, positions, cfg.rope_theta)
         return q, k, v
@@ -287,7 +313,7 @@ class ZambaSuper(L.Module):
     def forward(self, h, shared, emb0, positions):
         for pm in self.mamba:
             h = h + pm.m(pm.norm(h, self.cfg.norm_eps))
-        return shared(h, emb0, positions)
+        return shard_activation(shared(h, emb0, positions), "hidden")
 
     def decode(self, h, shared, emb0, state, pos):
         for j, pm in enumerate(self.mamba):

@@ -16,6 +16,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.distributed.sharding import is_dtensor
+from repro_torch.models.analysis_flags import card_routes_active
+
 INIT_SLAB = 1 << 26        # elements drawn at once by ``fill_``
 
 
@@ -74,10 +77,19 @@ def fill_(t: torch.Tensor, rule, generator: torch.Generator):
 # ---------------------------------------------------------------------------
 # matmuls
 # ---------------------------------------------------------------------------
+def _on_card(t) -> bool:
+    """Whether ``t`` takes the card's GEMM routes: a CUDA tensor, or any
+    under ``analysis_flags.card_routes`` (the dry run's fake tensors)."""
+    return t.is_cuda or card_routes_active()
+
+
 def matmul(x, w):
-    """x @ w with fp32 accumulation, result in x.dtype."""
-    if x.dtype == w.dtype and (x.dtype == torch.float32 or x.is_cuda):
-        return x @ w
+    """x @ w with fp32 accumulation, result in x.dtype (on DTensors,
+    `_dtensor_mm`)."""
+    if x.dtype == w.dtype and (x.dtype == torch.float32 or _on_card(x)):
+        return _dtensor_mm(x, w, torch.mm) if is_dtensor(x) else x @ w
+    if is_dtensor(x):
+        return _dtensor_mm(x.float(), w.float(), torch.mm).to(x.dtype)
     return (x.float() @ w.float()).to(x.dtype)
 
 
@@ -94,7 +106,7 @@ class MatmulF32(torch.autograd.Function):
     def forward(ctx, a, b):
         ctx.save_for_backward(a, b)
         mm = torch.bmm if a.dim() == 3 else torch.mm
-        if a.is_cuda:
+        if _on_card(a):
             return mm(a, b, out_dtype=torch.float32)
         return mm(a.float(), b.float())
 
@@ -109,22 +121,115 @@ class MatmulF32(torch.autograd.Function):
         return ga, gb
 
 
+def _mm_plan(pa, pb, nd: int, batched: bool):
+    """One mesh axis of a DTensor ``a @ b`` (``a`` [..., M, K] of ``nd``
+    dims @ ``b`` [K, N], or batched ``[B,M,K] @ [B,K,N]``): the placements
+    the operands are brought to, the output's, and those of the operands'
+    gradients.  Data-parallel (a on a leading dim), column-parallel (b on
+    its columns), row-parallel (both on K: a partial output) and
+    batch-parallel layouts run as they are; any other is gathered to one
+    of them (an FSDP weight is all-gathered)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    rep = Replicate()
+    if pa.is_partial():
+        pa = rep
+    if pb.is_partial():
+        pb = rep
+    if batched and (pa == Shard(0) or pb == Shard(0)):
+        return Shard(0), Shard(0), Shard(0), Shard(0), Shard(0)
+    k_a, k_b, n_b = nd - 1, (1 if batched else 0), (2 if batched else 1)
+    if pa == Shard(k_a) and pb in (Shard(k_b), rep):
+        return pa, Shard(k_b), Partial(), pa, Shard(k_b)   # row-parallel
+    if pa.is_shard() and pa.dim < k_a and not (batched and pa.dim == 0):
+        return pa, rep, pa, pa, Partial()                  # data-parallel
+    if pb == Shard(n_b):
+        return rep, pb, Shard(nd - 1), Partial(), pb       # column-parallel
+    return rep, rep, rep, rep, rep
+
+
+def _dtensor_mm(a, b, local_mm):
+    """``a @ b`` on DTensors (``a`` [..., K] @ ``b`` [K, N], or batched
+    ``[B,M,K] @ [B,K,N]``) as ``local_mm`` on the local shards: each
+    operand brought to `_mm_plan`'s placements, the product of the local
+    blocks (the leading dims folded into rows, as ``matmul`` folds them),
+    and the result wrapped with the placements that layout gives it.  The
+    leading dims are never merged on the DTensor: a merge of dims sharded
+    over two mesh axes makes DTensor gather the whole tensor."""
+    from torch.distributed.tensor import DTensor, Replicate
+    mesh = a.device_mesh
+    if not isinstance(b, DTensor):
+        b = DTensor.from_local(b, mesh, [Replicate()] * mesh.ndim,
+                               run_check=False)
+    batched = b.dim() == 3
+    plans = [_mm_plan(pa, pb, a.dim(), batched)
+             for pa, pb in zip(a.placements, b.placements)]
+    a2 = a.redistribute(mesh, [p[0] for p in plans])
+    b2 = b.redistribute(mesh, [p[1] for p in plans])
+    al = a2.to_local(grad_placements=[p[3] for p in plans])
+    bl = b2.to_local(grad_placements=[p[4] for p in plans])
+    if batched:
+        out = local_mm(al, bl)
+    else:
+        out = local_mm(al.reshape(-1, al.shape[-1]), bl).reshape(
+            *al.shape[:-1], bl.shape[-1])
+    shape = (*a.shape[:-1], b.shape[-1])
+    return DTensor.from_local(out, mesh, [p[2] for p in plans],
+                              run_check=False, shape=torch.Size(shape),
+                              stride=_contiguous_strides(shape))
+
+
+def _contiguous_strides(shape):
+    strides, acc = [], 1
+    for n in reversed(shape):
+        strides.append(acc)
+        acc *= n
+    return tuple(reversed(strides))
+
+
+def heads(t, n: int, hd: int):
+    """``t`` [..., n * hd] viewed as [..., n, hd].  A DTensor split on its
+    last dim over mesh axes whose product does not divide ``n`` (8 KV heads
+    of 128 over 16 cards) is first gathered on that dim: DTensor cannot
+    split a head across cards."""
+    if is_dtensor(t):
+        from torch.distributed.tensor import Replicate
+        last = t.dim() - 1
+        mesh = t.device_mesh
+        split = [i for i, p in enumerate(t.placements)
+                 if p.is_shard() and p.dim == last]
+        if n % int(np.prod([mesh.size(i) for i in split] or [1])):
+            t = t.redistribute(mesh, [Replicate() if i in split else p
+                                      for i, p in enumerate(t.placements)])
+    return t.reshape(*t.shape[:-1], n, hd)
+
+
+def _mm_f32(a, b):
+    if is_dtensor(a):
+        return _dtensor_mm(a, b, MatmulF32.apply)
+    return MatmulF32.apply(a, b)
+
+
 def matmul_f32(x, w):
     """x [..., d] @ w [d, f] with fp32 products and accumulation and an fp32
     result (the reference's ``preferred_element_type=float32`` without the
     cast back).  On the card a bf16 GEMM writes fp32 (``MatmulF32``) so that
-    no weight is upcast in the forward."""
+    no weight is upcast in the forward; on DTensors the same GEMM runs on
+    the local shards (`_dtensor_mm`)."""
     if x.dtype == torch.float32 and w.dtype == torch.float32:
-        return x @ w
-    if x.is_cuda and x.dtype == w.dtype:
+        return _dtensor_mm(x, w, torch.mm) if is_dtensor(x) else x @ w
+    if _on_card(x) and x.dtype == w.dtype:
+        if is_dtensor(x):
+            return _dtensor_mm(x, w, MatmulF32.apply)
         out = MatmulF32.apply(x.reshape(-1, x.shape[-1]), w)
         return out.reshape(*x.shape[:-1], w.shape[-1])
+    if is_dtensor(x):
+        return _dtensor_mm(x.float(), w.float(), torch.mm)
     return x.float() @ w.float()
 
 
 def bmatmul(a, b):
     """Batched a @ b with fp32 accumulation, result in a.dtype."""
-    if a.dtype == b.dtype and (a.dtype == torch.float32 or a.is_cuda):
+    if a.dtype == b.dtype and (a.dtype == torch.float32 or _on_card(a)):
         return torch.bmm(a, b)
     return torch.bmm(a.float(), b.float()).to(a.dtype)
 
@@ -133,8 +238,8 @@ def bmatmul_f32(a, b):
     """Batched a @ b with an fp32 result (``MatmulF32`` on the card)."""
     if a.dtype == torch.float32 and b.dtype == torch.float32:
         return torch.bmm(a, b)
-    if a.is_cuda and a.dtype == b.dtype:
-        return MatmulF32.apply(a, b)
+    if _on_card(a) and a.dtype == b.dtype:
+        return _mm_f32(a, b)
     return torch.bmm(a.float(), b.float())
 
 
@@ -257,7 +362,17 @@ class Table(Module):
 
 
 def embed(p, tokens):
-    return F.embedding(tokens, p.w)
+    """Rows ``tokens`` of the table.  A DTensor table is gathered whole
+    first (as FSDP gathers a weight), so that the lookup runs on the tokens
+    where they lie; its gradient is reduce-scattered back to the table's
+    shards.  (DTensor's own vocab-parallel lookup, a masked partial, fails
+    to redistribute when the tokens move.)"""
+    w = p.w
+    from torch.distributed.tensor import DTensor, Replicate
+    if isinstance(w, DTensor):
+        w = w.redistribute(w.device_mesh,
+                           [Replicate()] * w.device_mesh.ndim)
+    return F.embedding(tokens, w)
 
 
 def unembed(p, h):

@@ -17,11 +17,15 @@ unless ``device="cpu"`` is asked for.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.engine import resolve_device
+from repro_torch.distributed.sharding import (batch_local, current_mesh,
+                                              shard_activation)
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
@@ -30,16 +34,35 @@ AUX_LOSS_WEIGHT = 0.01
 Z_LOSS_WEIGHT = 1e-4
 
 
+def _serving(fn):
+    """``fn`` under ``torch.inference_mode``, or ``torch.no_grad`` on a
+    mesh (DTensor's views cannot run in inference mode)."""
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        with (torch.no_grad() if current_mesh() is not None
+              else torch.inference_mode()):
+            return fn(*args, **kwargs)
+    return wrapper
+
+
 def _dtype(cfg):
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+def _lse_gold(logits, labels):
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    return lse, gold
 
 
 def cross_entropy(logits, labels, ignore_index=-1):
     """logits [B,S,V] fp32; labels [B,S] int.  Returns (loss, z_loss)."""
     mask = labels != ignore_index
     labels_safe = torch.where(mask, labels, torch.zeros_like(labels))
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels_safe[..., None])[..., 0]
+    # on a mesh per rank, on its batch rows with the whole vocab (DTensor's
+    # gather on a split vocab fails to redistribute, and its backward
+    # allocates the global logits on every rank)
+    lse, gold = batch_local(_lse_gold, logits, labels_safe)
     nll = (lse - gold) * mask
     denom = torch.clamp(mask.sum(), min=1)
     z = (lse ** 2 * mask).sum() / denom
@@ -89,10 +112,12 @@ class BaseLM(L.Module):
         if self.cfg.n_image_patches:
             patches = L.matmul(batch["patches"].to(h.dtype), self.patch_proj.w)
             h = torch.cat([patches, h], dim=1)
-        return h
+        return shard_activation(h, "hidden")
 
     def _unembed(self, h):
-        return L.unembed(self.emb if self.cfg.tie_embeddings else self.head, h)
+        logits = L.unembed(self.emb if self.cfg.tie_embeddings else self.head,
+                           h)
+        return shard_activation(logits, "logits")
 
     def _positions(self, total_seq):
         return torch.arange(total_seq, device=self.device)[None, :]
@@ -131,15 +156,18 @@ class BaseLM(L.Module):
             {"dense": caches[0], "moe": caches[1]}
         return logits, cache
 
-    @torch.inference_mode()
+    @_serving
     def prefill(self, batch):
         """Prefill, processing the request batch in ``prefill_chunks``
         sequential chunks where the batch divides (bounds the MoE archs'
         activation and dispatch peak); the chunks' logits and caches are
-        joined back along the batch axis."""
+        joined back along the batch axis.  On a mesh the batch is split
+        over the data axes already and runs whole: a chunk of global rows
+        would be gathered from every rank (the reference's ``lax.map``
+        regroups the batch across devices; the port does not)."""
         nc = self.cfg.prefill_chunks
         bsz = batch["tokens"].shape[0]
-        if nc <= 1 or bsz % nc:
+        if nc <= 1 or bsz % nc or current_mesh() is not None:
             return self._prefill_once(batch)
         step = bsz // nc
         parts = [self._prefill_once({k: v[i:i + step]
@@ -147,6 +175,23 @@ class BaseLM(L.Module):
                  for i in range(0, bsz, step)]
         logits = torch.cat([lg for lg, _ in parts])
         return logits, _join([c for _, c in parts])
+
+    def input_specs(self, shape) -> dict:
+        """Meta tensors standing in for a batch of ``shape`` (a
+        ``ShapeConfig``): tokens (and labels to train, image patches for
+        the VLM); decode's tokens are [B, 1]."""
+        cfg = self.cfg
+        b, s = shape.global_batch, shape.seq_len
+        specs = {"tokens": _meta((b, s), torch.int64)}
+        if shape.kind == "train":
+            specs["labels"] = _meta((b, s), torch.int64)
+        if cfg.n_image_patches:
+            specs["patches"] = _meta((b, cfg.n_image_patches, cfg.d_model),
+                                     _dtype(cfg))
+        if shape.is_decode:
+            specs["tokens"] = _meta((b, 1), torch.int64)
+            specs.pop("patches", None)
+        return specs
 
     def init_cache(self, batch_size, max_seq):
         cfg, dt, dev = self.cfg, _dtype(self.cfg), self.device
@@ -172,7 +217,7 @@ class BaseLM(L.Module):
                     "moe": stack_cache(cfg.n_layers - nd)}
         return stack_cache(cfg.n_layers)
 
-    @torch.inference_mode()
+    @_serving
     def decode_step(self, cache, tokens, pos):
         h = L.embed(self.emb, tokens)                      # [B,1,D]
         if "dense" in cache:
@@ -183,6 +228,10 @@ class BaseLM(L.Module):
             h, _ = B.decoder_stack_decode(self.stack, h, cache, pos)
         h = self.final_norm(h, self.cfg.norm_eps)
         return self._unembed(h), cache
+
+
+def _meta(shape, dtype):
+    return torch.empty(shape, dtype=dtype, device="meta")
 
 
 def _join(caches):
@@ -218,6 +267,7 @@ class WhisperModel(BaseLM):
         h = frames.to(_dtype(cfg))
         h = h + L.sinusoidal_positions(h.shape[1], cfg.d_model,
                                        h.device).to(h.dtype)
+        h = shard_activation(h, "hidden")
         for blk in self.enc_stack:
             h = B.maybe_remat(blk, cfg.remat)(h, None)
         return self.enc_norm(h, cfg.norm_eps)
@@ -225,6 +275,7 @@ class WhisperModel(BaseLM):
     def _decode_seq(self, enc, tokens):
         h = L.embed(self.emb, tokens)
         h = h + self.dec_pos[:tokens.shape[1]].to(h.dtype)
+        h = shard_activation(h, "hidden")
         for blk in self.dec_stack:
             h = B.maybe_remat(blk, self.cfg.remat)(h, enc, None)
         h = self.dec_norm(h, self.cfg.norm_eps)
@@ -240,6 +291,22 @@ class WhisperModel(BaseLM):
         ce, z = cross_entropy(logits, batch["labels"])
         return ce + Z_LOSS_WEIGHT * z, {"ce": ce, "z": z}
 
+    def input_specs(self, shape) -> dict:
+        """Meta tensors standing in for a batch of ``shape``: frames and
+        tokens (and labels to train); decode's tokens are [B, 1], with no
+        frames."""
+        cfg = self.cfg
+        b, s = shape.global_batch, shape.seq_len
+        specs = {"frames": _meta((b, cfg.encoder_seq_len, cfg.d_model),
+                                 _dtype(cfg)),
+                 "tokens": _meta((b, s), torch.int64)}
+        if shape.kind == "train":
+            specs["labels"] = _meta((b, s), torch.int64)
+        if shape.is_decode:
+            specs["tokens"] = _meta((b, 1), torch.int64)
+            specs.pop("frames")
+        return specs
+
     def init_cache(self, batch_size, max_seq):
         cfg, dt, dev = self.cfg, _dtype(self.cfg), self.device
         hd, ls = cfg.resolved_head_dim, cfg.n_layers
@@ -250,7 +317,7 @@ class WhisperModel(BaseLM):
                 "xk": torch.zeros(cross_shape, dtype=dt, device=dev),
                 "xv": torch.zeros(cross_shape, dtype=dt, device=dev)}
 
-    @torch.inference_mode()
+    @_serving
     def prefill(self, batch):
         """The last logits and only the frozen cross K/V (the reference's
         contract: the self-attention K/V is rebuilt during decode)."""
@@ -259,12 +326,13 @@ class WhisperModel(BaseLM):
         logits = self._decode_seq(enc, batch["tokens"])
         return logits[:, -1:], {"xk": xk, "xv": xv}
 
-    @torch.inference_mode()
+    @_serving
     def decode_step(self, cache, tokens, pos):
         h = L.embed(self.emb, tokens)
         h = h + self.dec_pos[pos:pos + 1].to(h.dtype)
         for i, blk in enumerate(self.dec_stack):
-            h = blk.decode(h, B._slice(cache, i), pos)
+            with B.batch_sharded(B._slice(cache, i)) as c:
+                h = blk.decode(h, c, pos)
         h = self.dec_norm(h, self.cfg.norm_eps)
         return L.unembed(self.emb, h), cache
 
@@ -287,7 +355,7 @@ class XLSTMModel(BaseLM):
         return self.cfg.n_layers // self.cfg.xlstm.slstm_every
 
     def forward(self, batch):
-        h = L.embed(self.emb, batch["tokens"])
+        h = shard_activation(L.embed(self.emb, batch["tokens"]), "hidden")
         for sup in self.stack:
             h = B.maybe_remat(sup, self.cfg.remat)(h)
         h = self.final_norm(h, self.cfg.norm_eps)
@@ -302,18 +370,19 @@ class XLSTMModel(BaseLM):
                    S.slstm_init_state(cfg, batch_size, dev).items()}
         return {"mlstm": m_state, "slstm": s_state}
 
-    @torch.inference_mode()
+    @_serving
     def prefill(self, batch):
         """The last logits and a fresh empty state, as the reference's
         (the state is not carried out of the prompt)."""
         logits, _ = self.forward(batch)
         return logits[:, -1:], self.init_cache(batch["tokens"].shape[0], 0)
 
-    @torch.inference_mode()
+    @_serving
     def decode_step(self, cache, tokens, pos):
         h = L.embed(self.emb, tokens)
         for g, sup in enumerate(self.stack):
-            h = sup.decode(h, B._slice(cache, g))
+            with B.batch_sharded(B._slice(cache, g)) as c:
+                h = sup.decode(h, c)
         h = self.final_norm(h, self.cfg.norm_eps)
         return self._unembed(h), cache
 
@@ -337,7 +406,7 @@ class ZambaModel(BaseLM):
         return self.cfg.n_layers // self.cfg.shared_attn_every
 
     def forward(self, batch):
-        emb0 = L.embed(self.emb, batch["tokens"])
+        emb0 = shard_activation(L.embed(self.emb, batch["tokens"]), "hidden")
         positions = self._positions(emb0.shape[1])
         h = emb0
         for sup in self.stack:
@@ -357,20 +426,32 @@ class ZambaModel(BaseLM):
                 "k": torch.zeros(shape, dtype=dt, device=dev),
                 "v": torch.zeros(shape, dtype=dt, device=dev)}
 
-    @torch.inference_mode()
+    @_serving
     def prefill(self, batch):
         """The last logits and no cache (``None``), as the reference's."""
         logits, _ = self.forward(batch)
         return logits[:, -1:], None
 
-    @torch.inference_mode()
+    @_serving
     def decode_step(self, cache, tokens, pos):
         emb0 = L.embed(self.emb, tokens)
         h = emb0
         for g, sup in enumerate(self.stack):
-            h = sup.decode(h, self.shared, emb0, B._slice(cache, g), pos)
+            with B.batch_sharded(B._slice(cache, g)) as c:
+                h = sup.decode(h, self.shared, emb0, c, pos)
         h = self.final_norm(h, self.cfg.norm_eps)
         return self._unembed(h), cache
+
+
+def model_class(cfg: ModelConfig):
+    """The model class of ``cfg``'s family."""
+    if cfg.family == "audio":
+        return WhisperModel
+    if cfg.family == "ssm" and cfg.xlstm is not None:
+        return XLSTMModel
+    if cfg.family == "hybrid":
+        return ZambaModel
+    return BaseLM
 
 
 def build_model(cfg: ModelConfig, device=None) -> BaseLM:
@@ -378,11 +459,4 @@ def build_model(cfg: ModelConfig, device=None) -> BaseLM:
     call ``init(generator)``) on ``device``: the CUDA card unless
     ``device="cpu"`` is asked for; on a host without CUDA the default
     raises."""
-    dev = resolve_device(device)
-    if cfg.family == "audio":
-        return WhisperModel(cfg, dev)
-    if cfg.family == "ssm" and cfg.xlstm is not None:
-        return XLSTMModel(cfg, dev)
-    if cfg.family == "hybrid":
-        return ZambaModel(cfg, dev)
-    return BaseLM(cfg, dev)
+    return model_class(cfg)(cfg, resolve_device(device))

@@ -5,17 +5,21 @@ Every block has a full-sequence form (``forward``: a chunked parallel scan,
 a Python loop over chunks where the reference scans), a single-token
 ``decode`` against a carried state, and ``init_state``.  ``decode`` writes
 the new state into the state tensors it is given, in place, and returns
-them.  Softplus is ``logaddexp(x, 0)`` (``jax.nn.softplus``, with no
-threshold), and log-sigmoid is ``-softplus(-x)``.
+them.  On a mesh the scans and recurrent steps run on each rank's batch
+rows (``sharding.batch_local``).  Softplus is ``logaddexp(x, 0)``
+(``jax.nn.softplus``, with no threshold), and log-sigmoid is
+``-softplus(-x)``.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import batch_local
 from repro_torch.models import layers as L
 
 
@@ -149,13 +153,14 @@ def mamba2_apply(p, cfg, x):
     xbc = _causal_conv(xbc, p.conv.w, p.conv.b)
     xs, B, C = torch.split(xbc, [d_inner, s_cfg.d_state, s_cfg.d_state],
                            dim=-1)
-    xs = xs.reshape(b, s, n_heads, s_cfg.head_dim)
+    xs = L.heads(xs, n_heads, s_cfg.head_dim)
     dt = softplus(dt_raw.float() + p.dt_bias)
     A = -torch.exp(p.A_log)
     chunk = min(s_cfg.chunk_size, s)
     if s % chunk:
         chunk = math.gcd(s, chunk) or 1
-    y = _ssd_chunked(xs, dt, A, B, C, chunk)
+    y = batch_local(functools.partial(_ssd_chunked, chunk=chunk),
+                    xs, dt, A, B, C)
     y = y + xs.float() * p.D[None, None, :, None]
     y = y.reshape(b, s, d_inner).to(x.dtype)
     y = y * _silu_as(z, x.dtype)
@@ -175,6 +180,15 @@ def mamba2_init_state(cfg, batch, dtype=torch.float32, device=None):
     }
 
 
+def _ssd_step(xs, B, C, dt, ssm, A, D):
+    """One recurrent SSD step: (y [B,H,P], the new state [B,H,P,N])."""
+    decay = torch.exp(dt * A)                               # [B,H]
+    upd = torch.einsum("bhp,bn,bh->bhpn", xs, B.float(), dt)
+    ssm = ssm * decay[:, :, None, None] + upd
+    y = torch.einsum("bhpn,bn->bhp", ssm, C.float()) + xs * D[None, :, None]
+    return y, ssm
+
+
 def mamba2_decode(p, cfg, x, state):
     """x [B,1,d]; recurrent single-step update of ``state`` in place."""
     s_cfg = cfg.ssm
@@ -184,13 +198,10 @@ def mamba2_decode(p, cfg, x, state):
     xbc_c, win = _conv_step(state["conv"], xbc, p.conv.w, p.conv.b, x.dtype)
     xs, B, C = torch.split(xbc_c, [d_inner, s_cfg.d_state, s_cfg.d_state],
                            dim=-1)
-    xs = xs.reshape(b, n_heads, s_cfg.head_dim).float()
+    xs = L.heads(xs, n_heads, s_cfg.head_dim).float()
     dt = softplus(dt_raw.float() + p.dt_bias)               # [B,H]
     A = -torch.exp(p.A_log)
-    decay = torch.exp(dt * A)                               # [B,H]
-    upd = torch.einsum("bhp,bn,bh->bhpn", xs, B.float(), dt)
-    ssm = state["ssm"] * decay[:, :, None, None] + upd
-    y = torch.einsum("bhpn,bn->bhp", ssm, C.float()) + xs * p.D[None, :, None]
+    y, ssm = batch_local(_ssd_step, xs, B, C, dt, state["ssm"], A, p.D)
     y = y.reshape(b, 1, d_inner).to(x.dtype)
     y = y * _silu_as(z, x.dtype)[:, None, :]
     y = p.norm(y, cfg.norm_eps)
@@ -293,16 +304,17 @@ def mlstm_apply(p, cfg, x):
     d_up, n_heads, head_dim = mlstm_dims(cfg)
     u, z = L.matmul(x, p.up_proj).chunk(2, dim=-1)
     uc = _causal_conv(u, p.conv.w, p.conv.b)
-    q = L.matmul(uc, p.wq).view(b, s, n_heads, head_dim)
-    k = L.matmul(uc, p.wk).view(b, s, n_heads, head_dim)
-    v = L.matmul(u, p.wv).view(b, s, n_heads, head_dim)
+    q = L.heads(L.matmul(uc, p.wq), n_heads, head_dim)
+    k = L.heads(L.matmul(uc, p.wk), n_heads, head_dim)
+    v = L.heads(L.matmul(u, p.wv), n_heads, head_dim)
     gates = uc.float() @ p.w_gates + p.b_gates
     f_pre, i_pre = gates.chunk(2, dim=-1)                   # [B,S,H]
     log_f = -softplus(-f_pre)                               # log sigmoid
     chunk = min(256, s)
     if s % chunk:
         chunk = math.gcd(s, chunk) or 1
-    hidden = _mlstm_chunked(q, k, v, log_f, i_pre, chunk)
+    hidden = batch_local(functools.partial(_mlstm_chunked, chunk=chunk),
+                         q, k, v, log_f, i_pre)
     hidden = hidden.reshape(b, s, d_up).to(x.dtype)
     hidden = p.out_norm(hidden, cfg.norm_eps)
     hidden = hidden * _silu_as(z, x.dtype)
@@ -325,6 +337,21 @@ def mlstm_init_state(cfg, batch, device=None):
     }
 
 
+def _mlstm_step(q, k, v, log_f, log_i, C, nvec, m):
+    """One stabilized recurrent mLSTM step: (h [B,H,P], C, n, m)."""
+    m_new = torch.maximum(log_f + m, log_i)
+    f_s = torch.exp(log_f + m - m_new)                      # stabilized gates
+    i_s = torch.exp(log_i - m_new)
+    k_scaled = k / math.sqrt(q.shape[-1])
+    C = C * f_s[..., None, None] + \
+        i_s[..., None, None] * torch.einsum("bhp,bhq->bhpq", v, k_scaled)
+    nvec = nvec * f_s[..., None] + i_s[..., None] * k_scaled
+    num = torch.einsum("bhpq,bhq->bhp", C, q)
+    den = torch.maximum(torch.einsum("bhq,bhq->bh", nvec, q).abs(),
+                        torch.exp(-m_new))
+    return num / den[..., None], C, nvec, m_new
+
+
 def mlstm_decode(p, cfg, x, state):
     """x [B,1,d]; stabilized recurrent step, ``state`` updated in place."""
     b = x.shape[0]
@@ -332,23 +359,15 @@ def mlstm_decode(p, cfg, x, state):
     u, z = L.matmul(x, p.up_proj)[:, 0].chunk(2, dim=-1)
     uc, win = _conv_step(state["conv"].to(u.dtype), u, p.conv.w, p.conv.b,
                          x.dtype)
-    q = L.matmul(uc, p.wq).view(b, n_heads, head_dim).float()
-    k = L.matmul(uc, p.wk).view(b, n_heads, head_dim).float()
-    v = L.matmul(u, p.wv).view(b, n_heads, head_dim).float()
+    q = L.heads(L.matmul(uc, p.wq), n_heads, head_dim).float()
+    k = L.heads(L.matmul(uc, p.wk), n_heads, head_dim).float()
+    v = L.heads(L.matmul(u, p.wv), n_heads, head_dim).float()
     gates = uc.float() @ p.w_gates + p.b_gates
     f_pre, log_i = gates.chunk(2, dim=-1)                   # [B,H]
     log_f = -softplus(-f_pre)
-    m_new = torch.maximum(log_f + state["m"], log_i)
-    f_s = torch.exp(log_f + state["m"] - m_new)             # stabilized gates
-    i_s = torch.exp(log_i - m_new)
-    k_scaled = k / math.sqrt(head_dim)
-    C = state["C"] * f_s[..., None, None] + \
-        i_s[..., None, None] * torch.einsum("bhp,bhq->bhpq", v, k_scaled)
-    nvec = state["n"] * f_s[..., None] + i_s[..., None] * k_scaled
-    num = torch.einsum("bhpq,bhq->bhp", C, q)
-    den = torch.maximum(torch.einsum("bhq,bhq->bh", nvec, q).abs(),
-                        torch.exp(-m_new))
-    h = (num / den[..., None]).reshape(b, 1, d_up).to(x.dtype)
+    h, C, nvec, m_new = batch_local(_mlstm_step, q, k, v, log_f, log_i,
+                                    state["C"], state["n"], state["m"])
+    h = h.reshape(b, 1, d_up).to(x.dtype)
     h = p.out_norm(h, cfg.norm_eps)
     h = h * _silu_as(z, x.dtype)[:, None, :]
     out = L.matmul(h, p.down_proj)

@@ -11,6 +11,13 @@ stays trivial):
 (the reference's paths with the stacked axes spelled out, as
 ``convert.lm_params_from_reference`` names them); the step updates them,
 the moments and ``step`` in place and returns the state.
+
+On a mesh (``sharding.use_mesh``) the state's tensors are DTensors.  A
+gradient comes back with the placements autograd gives it (``Partial`` on
+the axes its weight was gathered over) and is redistributed to its
+parameter's before the clip; a microbatch is a slice of the global batch,
+sharded as the batch is; the metrics come back as plain tensors, the same
+on every rank.
 """
 from __future__ import annotations
 
@@ -19,6 +26,7 @@ from typing import Callable, Optional
 
 import torch
 
+from repro_torch.distributed.sharding import local_shard
 from repro_torch.optim.adamw import AdamW
 from repro_torch.optim.compression import compress_decompress
 
@@ -47,9 +55,33 @@ def make_init_fn(model, optimizer: AdamW, step_cfg: TrainStepConfig):
     return init_fn
 
 
+def _rows(v, lo, hi):
+    """Rows [lo, hi) of a batch leaf; of a DTensor, sharded as it is."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    if not isinstance(v, DTensor):
+        return v[lo:hi]
+    return distribute_tensor(v.full_tensor()[lo:hi], v.device_mesh,
+                             v.placements)
+
+
 def _split_microbatches(batch, n):
-    return [{k: v.reshape(n, v.shape[0] // n, *v.shape[1:])[i]
-             for k, v in batch.items()} for i in range(n)]
+    size = next(iter(batch.values())).shape[0] // n
+    return [{k: _rows(v, i * size, (i + 1) * size) for k, v in batch.items()}
+            for i in range(n)]
+
+
+def _as_param(g, p):
+    """A gradient brought to its parameter's placements."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(g, DTensor) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
+def _value(t):
+    """A metric as a plain tensor (a DTensor's global value)."""
+    from torch.distributed.tensor import DTensor
+    return t.full_tensor() if isinstance(t, DTensor) else t
 
 
 def make_train_step(model, optimizer: AdamW, step_cfg: TrainStepConfig,
@@ -59,18 +91,19 @@ def make_train_step(model, optimizer: AdamW, step_cfg: TrainStepConfig,
     def grad_fn(params, batch):
         loss, metrics = model.loss(batch)
         grads = torch.autograd.grad(loss, list(params.values()))
-        return loss.detach(), {k: v.detach() for k, v in metrics.items()}, \
-            dict(zip(params, grads))
+        return (_value(loss.detach()),
+                {k: _value(v.detach()) for k, v in metrics.items()},
+                {k: _as_param(g, p) for (k, p), g in zip(params.items(),
+                                                          grads)})
 
     def train_step(state, batch):
         params = state["params"]
         n = step_cfg.microbatches
         if n > 1:
-            grads = {k: torch.zeros(p.shape, dtype=torch.float32,
-                                    device=p.device)
+            grads = {k: torch.zeros_like(p, dtype=torch.float32)
                      for k, p in params.items()}
             loss = torch.zeros((), dtype=torch.float32,
-                               device=state["step"].device)
+                               device=local_shard(state["step"]).device)
             for mb in _split_microbatches(batch, n):
                 mb_loss, metrics, g = grad_fn(params, mb)
                 for k, gk in g.items():
@@ -86,7 +119,7 @@ def make_train_step(model, optimizer: AdamW, step_cfg: TrainStepConfig,
         if step_cfg.grad_compression:
             grads, state["err"] = compress_decompress(grads, state["err"])
 
-        lr = lr_fn(state["step"])
+        lr = lr_fn(local_shard(state["step"]))
         _, state["opt"], gnorm = optimizer.update(grads, state["opt"],
                                                   params, lr)
         state["step"] = state["step"] + 1
