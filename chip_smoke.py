@@ -231,8 +231,10 @@ rank's local state bytes equal to the dry run's for the same fake mesh,
 a checkpoint saved on (4, 1) restored on (2, 2) and on one card bitwise)
 and deepseek-v3-671b at full width cut to 4 layers (3 dense + 1 MoE of
 256 experts), 2 steps of B 4 x S 256 on (1, 4) with experts over
-``model`` (finite losses and grad norms; routes and capacity drops equal
-one card's on the same MoE input and router; peak GiB beside the dry
+``model``, and 2 steps of B 32 x S 512 on (2, 2), each rank holding its
+own data shard's MoE pairs (finite losses and grad norms; routes and
+capacity drops equal one card's on the same MoE input and router; each
+rank's local state bytes equal to the dry run's; peak GiB beside the dry
 run's), a ``mesh`` and an ``lm_mesh`` JSON line, the cards' names and
 power limits, and the last line.
 
@@ -368,9 +370,12 @@ LAUNCH_B, LAUNCH_S = 8, 256        # launch/train.py's default batch
 # script): smollm-135m at full width on (4, 1) and (2, 2), against one
 # card; deepseek-v3-671b at full width cut to 4 layers (3 dense + 1 MoE of
 # 256 experts) on (1, 4), experts over ``model`` (~15.1 B parameters: 169
-# GiB of weights, grads and fp32 m, v, which no one card holds)
+# GiB of weights, grads and fp32 m, v, which no one card holds), and on
+# (2, 2), its MoE's pairs split over ``data``, at a B x S whose global
+# [T*k, d] pairs (what a rank held before they were split) take 1.75 GiB
 LM_MESH_STEPS, LM_MESH_TOL, LM_MESH_LR, LM_MESH_WARMUP = 20, 2e-2, 3e-3, 5
-DSV3_LAYERS, DSV3_STEPS, DSV3_B, DSV3_S = 4, 2, 4, 256
+DSV3_LAYERS, DSV3_STEPS = 4, 2
+DSV3_BATCH = {(1, 4): (4, 256), (2, 2): (32, 512)}     # mesh: (B, S)
 # device kernel names of each wrapper's kernels (the profiler's keys)
 DEVICE_NAMES = {"harris": ("harris_kernel",), "fast": ("fast_tiled",),
                 "blur": ("blur_tiled", "blur_small"),
@@ -1895,8 +1900,8 @@ class NoDropRoutes:
     def __enter__(self):
         route = self.route = self.M.route
 
-        def recording(p, c, x):
-            out = route(p, c, x)
+        def recording(p, c, x, seq=None):
+            out = route(p, c, x, seq)
             self.ids.append(out[1].sort(-1).values)
             return out
 
@@ -2799,8 +2804,9 @@ def lm_worker_main(kind: str, shape, out_dir: Path) -> int:
     ``smollm`` trains smollm-135m LM_MESH_STEPS steps at full width (a
     (4, 1) run saves its final state; a (2, 2) run restores it after
     training and holds it bitwise); ``dsv3`` trains deepseek-v3-671b cut to
-    DSV3_LAYERS layers DSV3_STEPS steps and keeps its MoE layer's input,
-    router and routes of the first step.  Writes rank 0's figures."""
+    DSV3_LAYERS layers DSV3_STEPS steps (B x S of DSV3_BATCH) and keeps its
+    MoE layer's input, router and routes of the first step.  Writes rank
+    0's figures."""
     import torch
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
@@ -2826,14 +2832,15 @@ def lm_worker_main(kind: str, shape, out_dir: Path) -> int:
         cfg, steps, b, s = (get_config("smollm-135m"), LM_MESH_STEPS,
                             LAUNCH_B, LAUNCH_S)
     else:
-        cfg, steps, b, s = (get_config("deepseek-v3-671b").replace(
-            n_layers=DSV3_LAYERS), DSV3_STEPS, DSV3_B, DSV3_S)
+        cfg, steps = (get_config("deepseek-v3-671b").replace(
+            n_layers=DSV3_LAYERS), DSV3_STEPS)
+        b, s = DSV3_BATCH[tuple(shape)]
     t0 = time.perf_counter()
     model = build_model(cfg, dev).init(
         torch.Generator(device=dev).manual_seed(0))
     opt = AdamW()
     scfg = TrainStepConfig(learning_rate=LM_MESH_LR)
-    seen = {}
+    seen, mem = {}, {}
     with T._on_mesh(mesh, cfg):
         state, shardings = T.place_state(model, opt, scfg, mesh)
         torch.cuda.empty_cache()
@@ -2848,7 +2855,17 @@ def lm_worker_main(kind: str, shape, out_dir: Path) -> int:
                     seen.update(x=args[0].full_tensor().detach().clone(),
                                 router=mod.router.full_tensor().detach()
                                 .clone())
-            hook = moes[0].register_forward_pre_hook(keep_input)
+                    # the layer's own high-water: bytes above its entry
+                    mem.update(before=torch.cuda.max_memory_allocated(),
+                               base=torch.cuda.memory_allocated())
+                    torch.cuda.reset_peak_memory_stats()
+
+            def moe_done(mod, args, out):
+                if "moe" not in mem:
+                    mem["moe"] = (torch.cuda.max_memory_allocated()
+                                  - mem["base"])
+            hooks = (moes[0].register_forward_pre_hook(keep_input),
+                     moes[0].register_forward_hook(moe_done))
         step = make_train_step(model, opt, scfg, cosine_schedule(
             LM_MESH_LR, warmup_steps=LM_MESH_WARMUP, total_steps=steps))
         torch.cuda.reset_peak_memory_stats()
@@ -2867,16 +2884,17 @@ def lm_worker_main(kind: str, shape, out_dir: Path) -> int:
             losses.append(float(m["loss"]))
             norms.append(float(m["grad_norm"]))
             if moes and i == 0:
-                hook.remove()
+                for h in hooks:
+                    h.remove()
                 idx, keep = moes[0].routes[0]     # (remat may rerun it)
                 moes[0].routes = None
                 seen.update(idx=idx.cpu(), keep=keep.cpu(),
                             router=seen["router"].cpu(), x=seen["x"].cpu())
-        peak = torch.cuda.max_memory_allocated()
+        peak = max(torch.cuda.max_memory_allocated(), mem.get("before", 0))
         out = dict(kind=kind, mesh=list(shape), losses=losses,
                    grad_norms=norms, step_s=times, init_s=init_s,
                    state_bytes=nbytes, peak_bytes=peak,
-                   tokens=b * s)
+                   moe_forward_bytes=mem.get("moe"), tokens=b * s)
         ck = CheckpointManager(out_dir / "ckpt_4x1")
         if kind == "smollm" and tuple(shape) == (4, 1):
             ck.save(state, steps)                  # rank 0 writes
@@ -2962,6 +2980,81 @@ def one_card_smollm(torch, dev):
     return losses, times
 
 
+def dsv3_mesh_run(torch, dev, root, shape, predict, card):
+    """deepseek-v3-671b cut to DSV3_LAYERS layers on the 4 cards' mesh
+    ``shape``: finite losses and grad norms, its MoE layer's routes and
+    drops of the first step equal to one card's on the same input and
+    router, every rank's local state bytes equal to the dry run's
+    (``predict``, a `start_predict` process), its peak beside the dry
+    run's.  Returns the figures."""
+    import types
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as M
+    tag = "x".join(map(str, shape))
+    b, s = DSV3_BATCH[shape]
+    r = torchrun_lm("dsv3", shape, root, 4)
+    require(all(np.isfinite(r["losses"] + r["grad_norms"])),
+            f"deepseek-v3 {shape}: a loss or grad norm is not finite: {r}")
+    seen = torch.load(root / f"dsv3_{tag}_routes.pt")
+    cfg = get_config("deepseek-v3-671b").replace(n_layers=DSV3_LAYERS)
+    x = seen["x"].to(dev)
+    xt = x.reshape(-1, x.shape[-1])
+    rp = types.SimpleNamespace(router=seen["router"].to(dev))
+    _, idx, _ = M.route(rp, cfg, xt, s)
+    *_, keep = M.dispatch(idx, cfg.moe.n_experts,
+                          M.capacity(cfg, xt.shape[0]))
+    require(torch.equal(idx.cpu(), seen["idx"])
+            and torch.equal(keep.cpu(), seen["keep"]),
+            f"deepseek-v3 {shape}: the mesh's routes or drops differ from "
+            f"one card's on the same MoE input and router")
+    # why the router product runs a sequence at a time: one GEMM over all
+    # T rows rounds otherwise and moves these tokens' routes
+    _, one_gemm, _ = M.route(rp, cfg, xt)
+    moved = int((one_gemm != idx).any(-1).sum())
+    xt_rows = xt.shape[0]
+    del x, xt, idx, keep, one_gemm
+    finish(predict, f"prediction dsv3 {tag}")
+    pred = json.loads((root / f"predict_dsv3_{tag}.json").read_text())
+    require(all(x == pred["state_bytes_per_device"]
+                for x in r["state_bytes_all"]),
+            f"deepseek-v3 {shape}: local state bytes {r['state_bytes_all']} "
+            f"!= the dry run's {pred['state_bytes_per_device']}")
+    step_s = statistics.median(r["step_s"][1:]) if len(r["step_s"]) > 1 \
+        else r["step_s"][0]
+    pairs = int(seen["keep"].numel())
+    f = dict(
+        batch=[b, s], losses=r["losses"], grad_norms=r["grad_norms"],
+        dropped_pairs=int((~seen["keep"]).sum()), pairs=pairs,
+        routes_moved_by_one_gemm=moved,
+        global_pairs_gib=pairs * cfg.d_model * 2 / 2 ** 30,
+        step_ms=1e3 * step_s, tokens_per_s=r["tokens"] / step_s,
+        init_s=r["init_s"],
+        moe_forward_gib=r["moe_forward_bytes"] / 2 ** 30,
+        peak_gib=[p / 2 ** 30 for p in r["peak_bytes_all"]],
+        peak_gib_dryrun=pred["memory"]["peak_bytes_per_device"] / 2 ** 30,
+        state_gib=[x / 2 ** 30 for x in r["state_bytes_all"]],
+        state_gib_dryrun=pred["state_bytes_per_device"] / 2 ** 30,
+        collective_bytes_dryrun=pred["collective_bytes"],
+        n_params=pred["n_params"], wall_s=r["wall_s"])
+    log(f"  deepseek-v3-671b at full width, {DSV3_LAYERS} layers "
+        f"({f['n_params'] / 1e9:.2f} B parameters) on {shape} ({card}), B "
+        f"{b} x S {s}: losses {r['losses']}, grad norms {r['grad_norms']} "
+        f"finite; routes and {f['dropped_pairs']} of {pairs} pairs "
+        f"dropped = one card's on the same MoE input (one GEMM over all "
+        f"{xt_rows} rows would move {moved} tokens' routes); "
+        f"{f['step_ms']:.0f} ms "
+        f"a step ({f['tokens_per_s']:.0f} tokens/s), state "
+        f"{max(f['state_gib']):.2f} GiB a card = the dry run's "
+        f"{f['state_gib_dryrun']:.2f}, peak {max(f['peak_gib']):.2f} GiB a "
+        f"card (dry run {f['peak_gib_dryrun']:.2f}); the MoE layer's "
+        f"forward {f['moe_forward_gib']:.2f} GiB above its input on rank 0 "
+        f"(the global [T*k, d] pairs {f['global_pairs_gib']:.2f} GiB)")
+    return f
+
+
 def lm_mesh_phase(torch, dev, n_cards):
     """``--mesh-cards``: the LM on a mesh of 4 cards (see the constants
     above).  Returns the figures."""
@@ -2971,7 +3064,6 @@ def lm_mesh_phase(torch, dev, n_cards):
 
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.configs import get_config
-    from repro_torch.models import moe as M
     require(n_cards >= 4, "the LM mesh runs need 4 cards")
     root = ROOT / "build" / "chip_lm_mesh"
     shutil.rmtree(root, ignore_errors=True)
@@ -2981,8 +3073,10 @@ def lm_mesh_phase(torch, dev, n_cards):
              for tag, arch, shape, b, s, layers in (
                  ("smollm_4x1", "smollm-135m", (4, 1), LAUNCH_B, LAUNCH_S, 0),
                  ("smollm_2x2", "smollm-135m", (2, 2), LAUNCH_B, LAUNCH_S, 0),
-                 ("dsv3_1x4", "deepseek-v3-671b", (1, 4), DSV3_B, DSV3_S,
-                  DSV3_LAYERS))}
+                 ("dsv3_1x4", "deepseek-v3-671b", (1, 4),
+                  *DSV3_BATCH[(1, 4)], DSV3_LAYERS),
+                 ("dsv3_2x2", "deepseek-v3-671b", (2, 2),
+                  *DSV3_BATCH[(2, 2)], DSV3_LAYERS))}
     one, one_times = one_card_smollm(torch, dev)
     cards = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3043,47 +3137,10 @@ def lm_mesh_phase(torch, dev, n_cards):
     log(f"  a checkpoint saved on (4, 1) restores on (2, 2) and on one card "
         f"bitwise ({len(z.files)} leaves)")
 
-    r = torchrun_lm("dsv3", (1, 4), root, 4)
-    require(all(np.isfinite(r["losses"] + r["grad_norms"])),
-            f"deepseek-v3 (1, 4): a loss or grad norm is not finite: {r}")
-    seen = torch.load(root / "dsv3_1x4_routes.pt")
-    cfg = get_config("deepseek-v3-671b").replace(n_layers=DSV3_LAYERS)
-    import types
-    x = seen["x"].to(dev)
-    xt = x.reshape(-1, x.shape[-1])
-    _, idx, _ = M.route(types.SimpleNamespace(router=seen["router"].to(dev)),
-                        cfg, xt)
-    *_, keep = M.dispatch(idx, cfg.moe.n_experts,
-                          M.capacity(cfg, xt.shape[0]))
-    require(torch.equal(idx.cpu(), seen["idx"])
-            and torch.equal(keep.cpu(), seen["keep"]),
-            "deepseek-v3 (1, 4): the mesh's routes or drops differ from one "
-            "card's on the same MoE input and router")
-    finish(preds["dsv3_1x4"], "prediction dsv3 1x4")
-    pred = json.loads((root / "predict_dsv3_1x4.json").read_text())
-    step_s = statistics.median(r["step_s"][1:]) if len(r["step_s"]) > 1 \
-        else r["step_s"][0]
-    figures["dsv3_1x4"] = dict(
-        losses=r["losses"], grad_norms=r["grad_norms"],
-        dropped_pairs=int((~seen["keep"]).sum()),
-        pairs=int(seen["keep"].numel()), step_ms=1e3 * step_s,
-        tokens_per_s=r["tokens"] / step_s, init_s=r["init_s"],
-        peak_gib=[p / 2 ** 30 for p in r["peak_bytes_all"]],
-        peak_gib_dryrun=pred["memory"]["peak_bytes_per_device"] / 2 ** 30,
-        state_gib=[b / 2 ** 30 for b in r["state_bytes_all"]],
-        state_gib_dryrun=pred["state_bytes_per_device"] / 2 ** 30,
-        n_params=pred["n_params"], wall_s=r["wall_s"])
-    f = figures["dsv3_1x4"]
-    log(f"  deepseek-v3-671b at full width, {DSV3_LAYERS} layers "
-        f"({f['n_params'] / 1e9:.2f} B parameters) on (1, 4) ({card}), B "
-        f"{DSV3_B} x S "
-        f"{DSV3_S}: losses {r['losses']}, grad norms {r['grad_norms']} "
-        f"finite; routes and {f['dropped_pairs']} of {f['pairs']} pairs "
-        f"dropped = one card's on the same MoE input; {f['step_ms']:.0f} ms "
-        f"a step ({f['tokens_per_s']:.0f} tokens/s), state "
-        f"{max(f['state_gib']):.2f} GiB a card (dry run "
-        f"{f['state_gib_dryrun']:.2f}), peak {max(f['peak_gib']):.2f} GiB a "
-        f"card (dry run {f['peak_gib_dryrun']:.2f})")
+    for shape in DSV3_BATCH:
+        tag = "x".join(map(str, shape))
+        figures[f"dsv3_{tag}"] = dsv3_mesh_run(torch, dev, root, shape,
+                                               preds[f"dsv3_{tag}"], card)
     shutil.rmtree(root, ignore_errors=True)
     return figures
 

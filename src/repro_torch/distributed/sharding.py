@@ -579,6 +579,19 @@ def sharded_axes(t) -> Tuple[int, ...]:
                  if pl.is_shard() and mesh.size(i) > 1)
 
 
+def shard_block(n: int, mesh, dims: Sequence[int]) -> Tuple[int, int]:
+    """(first index, length) of this rank's block of a dim of size ``n``
+    sharded over the mesh dims ``dims`` (major first, each split as
+    ``torch.chunk`` splits, as DTensor's ``Shard`` does)."""
+    start = 0
+    for i in dims:
+        size = -(-n // mesh.size(i))
+        r = mesh.get_local_rank(i)
+        start += min(r * size, n)
+        n = max(0, min(size, n - r * size))
+    return start, n
+
+
 def reduce_partial(value: torch.Tensor, mesh, axes: Sequence[int],
                    op: str = "sum") -> torch.Tensor:
     """``value``, a local partial result over the mesh dims ``axes``,

@@ -16,7 +16,9 @@ counts
 * collectives, by the reference's kind names, in bytes of each result on
   this rank;
 * live bytes: each storage from the op that makes it until its last
-  tensor dies; ``peak_bytes`` is the high-water mark.
+  tensor dies; ``peak_bytes`` is the high-water mark, and ``at_peak`` the
+  largest storages live there (bytes, the shape and dtype of the tensor
+  that made each): what sets the peak.
 
 Hardware model, per card (NVIDIA H100 80GB HBM3, 700 W; the data sheet's
 dense rates): 989e12 bf16 FLOP/s, 3.35e12 B/s of HBM3, and 50e9 B/s of
@@ -26,6 +28,7 @@ collective bandwidth a card: NDR InfiniBand at 400 Gb/s, since both
 from __future__ import annotations
 
 import contextlib
+import heapq
 import threading
 import weakref
 from typing import Dict
@@ -38,6 +41,7 @@ PEAK_FLOPS = 989e12          # bf16 dense per card
 HBM_BW = 3.35e12             # bytes/s per card
 LINK_BW = 50e9               # bytes/s per card across nodes (NDR 400 Gb/s)
 CARD = "NVIDIA H100 80GB HBM3, 700 W"
+PEAK_TENSORS = 6             # the largest live storages recorded at the peak
 
 _COLLECTIVES = {
     "all_gather_into_tensor": "all-gather",
@@ -98,6 +102,7 @@ class OpCounter(TorchDispatchMode):
         self.collectives: Dict[str, int] = {}
         self.live = 0
         self.peak = 0
+        self.at_peak: list = []
         self._storages: Dict[int, list] = {}
         self._marks = contextlib.ExitStack()
 
@@ -116,9 +121,14 @@ class OpCounter(TorchDispatchMode):
         key = t.untyped_storage()._cdata
         entry = self._storages.get(key)
         if entry is None:
-            entry = self._storages[key] = [t.untyped_storage().nbytes(), 0]
+            entry = self._storages[key] = [t.untyped_storage().nbytes(), 0,
+                                           list(t.shape), str(t.dtype)]
             self.live += entry[0]
-            self.peak = max(self.peak, self.live)
+            if self.live > self.peak:
+                self.peak = self.live
+                self.at_peak = [[e[0], e[2], e[3]] for e in heapq.nlargest(
+                    PEAK_TENSORS, self._storages.values(),
+                    key=lambda e: e[0])]
         entry[1] += 1
         weakref.finalize(t, self._release, key)
 

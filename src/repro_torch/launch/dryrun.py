@@ -93,7 +93,8 @@ def lower_cell(cfg, shape, mesh, microbatches: int = 1):
     """Trace one (arch, shape, mesh) cell on rank 0 (``mesh``: an `LMMesh`
     of a fake process group, `mesh.make_fake_mesh`).  Returns the
     reference's result dict, plus ``state_bytes_per_device`` (the placed
-    state's, or parameters', local bytes)."""
+    state's, or parameters', local bytes) and ``peak_tensors`` (the
+    largest storages live at the peak: bytes, shape, dtype)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.distributed.tensor.experimental import implicit_replication
     dev = torch.device(mesh.device_mesh.device_type, 0)
@@ -184,6 +185,7 @@ def lower_cell(cfg, shape, mesh, microbatches: int = 1):
             "peak_bytes_per_device": counter.peak,
         },
         "state_bytes_per_device": state_bytes,
+        "peak_tensors": counter.at_peak,
         "cost": cost,
         "collective_bytes": coll,
         "collective_bytes_total": sum(coll.values()),

@@ -11,26 +11,31 @@ Orders that decide results follow the reference's: top-k ties go to the
 lower expert index, the pair sort is stable (which pairs a full expert
 drops depends on it), and each token's pairs are summed in ascending
 expert order, one rounding per add, without atomics, so that two runs are
-bitwise equal.
+bitwise equal.  The router product runs one sequence at a time
+(`router_logits`), so that a token's logits do not depend on how many
+rows share its GEMM.
 
-On a mesh (``x`` a DTensor) the routing statistics and the dispatch plan
-are decided over the global token set, as the reference's are: every rank
-gathers the tokens and the router and runs the same plan, so the pairs
-dropped at capacity are the one-device run's.  The experts are split over
-``model`` on E ("expert", the reference's layout): each rank fills the
-[E/n, C, d] buffer of its own experts, runs their FFN and combines their
-pairs into a partial sum over the expert axes; what the dispatch and the
-combine read (the tokens, the gates) has its gradient summed over those
-axes, the routing's own stays replicated.
+On a mesh (``x`` a DTensor) the reference's layout is kept
+(``src/repro/models/moe.py:91-116``): each rank routes its own data
+shard's tokens and holds only their pairs ([T*k/dp, d]), and the experts
+are split over ``model`` on E ("expert"): a rank's [E/ep, C, d] buffer
+takes its own tokens' kept pairs for its own experts and is summed over
+the data dims, its FFN runs on those experts, and its tokens' pairs come
+back from them as a partial sum over the expert dims.  The plan is the
+global one: the expert ids [T,k] are gathered and every rank runs the
+same `dispatch`, so the pairs dropped at capacity are the one-device
+run's, and the aux loss takes the global counts and mean probabilities.
+What the dispatch and the combine read (the tokens, the gates) has its
+gradient summed over the expert dims; the router's is partial over the
+data dims.
 """
 from __future__ import annotations
-
-import types
 
 import numpy as np
 import torch
 
-from repro_torch.distributed.sharding import shard_activation
+from repro_torch.distributed.sharding import (is_dtensor, reduce_partial,
+                                              shard_activation, shard_block)
 from repro_torch.models import layers as L
 
 
@@ -58,24 +63,48 @@ def capacity(cfg, n_tokens: int) -> int:
     return max(8, (c + 7) // 8 * 8)   # pad to multiple of 8 for tiling
 
 
-def route(p, cfg, x):
-    """Router: returns (gates [T,k], expert_ids [T,k], aux_loss scalar)."""
+def route(p, cfg, x, seq=None):
+    """Router: returns (gates [T,k], expert_ids [T,k], aux_loss scalar).
+    ``seq``: the tokens a sequence (`router_logits`), by default all."""
+    gates, idx, logits = _top_k(p.router, cfg, x, seq)
+    # load-balance aux loss (Switch-style, on softmax probabilities)
+    probs = torch.softmax(logits, dim=-1)
+    me = probs.mean(dim=0)                                 # [E]
+    return gates, idx, _aux(cfg, me, idx)
+
+
+def router_logits(x, router, seq=None):
+    """x [T,d] @ router [d,E] in fp32, one product for each ``seq`` rows
+    (a sequence's tokens).  cuBLAS picks its algorithm, and with it the
+    rounding, by the row count: products of one sequence each give a token
+    the same logits whether one device routes all T tokens or a data
+    shard its own, so the routes and drops of a mesh are one device's."""
+    if seq is None or seq >= x.shape[0]:
+        return x.float() @ router
+    return torch.cat([x[i:i + seq].float() @ router
+                      for i in range(0, x.shape[0], seq)])
+
+
+def _top_k(router, cfg, x, seq):
+    """(gates [T,k], expert ids [T,k], logits [T,E]) of tokens ``x``."""
     m = cfg.moe
-    t = x.shape[0]
-    logits = x.float() @ p.router
+    logits = router_logits(x, router, seq)
     scores = torch.sigmoid(logits)                        # DeepSeek-V3 gating
     # lax.top_k: descending, ties to the lower index (a stable sort)
     order = torch.sort(scores, dim=-1, descending=True, stable=True).indices
     idx = order[:, :m.n_experts_per_tok]
     gates = torch.gather(scores, 1, idx)
     gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
-    # load-balance aux loss (Switch-style, on softmax probabilities)
-    probs = torch.softmax(logits, dim=-1)
-    me = probs.mean(dim=0)                                 # [E]
+    return gates, idx, logits
+
+
+def _aux(cfg, me, idx):
+    """The load-balance loss of the mean router probabilities ``me`` [E]
+    and the expert ids ``idx`` [T,k] of every token."""
+    m = cfg.moe
     ce = _counts(idx.reshape(-1), m.n_experts).float()
-    ce = ce / (t * m.n_experts_per_tok)
-    aux = m.n_experts * torch.sum(me * ce)
-    return gates, idx, aux
+    ce = ce / idx.numel()
+    return m.n_experts * torch.sum(me * ce)
 
 
 def _counts(flat, n: int):
@@ -101,13 +130,6 @@ def dispatch(idx, n_experts: int, c: int):
     return order, e_sorted, t_sorted, pos, pos < c
 
 
-def _replicated(t):
-    """A DTensor's global value on every rank, as a local tensor."""
-    from torch.distributed.tensor import Replicate
-    mesh = t.device_mesh
-    return t.redistribute(mesh, [Replicate()] * mesh.ndim).to_local()
-
-
 def _as_replicated(t, mesh):
     from torch.distributed.tensor import DTensor, Replicate
     return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
@@ -115,8 +137,8 @@ def _as_replicated(t, mesh):
 
 
 def _sum_grad(t, mesh, dims):
-    """``t`` (the same on every rank) unchanged, its gradient (partial over
-    the mesh dims ``dims``) summed over them."""
+    """``t`` (the same on the ranks of the mesh dims ``dims``) unchanged,
+    its gradient (partial over ``dims``) summed over them."""
     from torch.distributed.tensor import Partial, Replicate
     return _as_replicated(t, mesh).to_local(grad_placements=[
         Partial() if i in dims else Replicate() for i in range(mesh.ndim)])
@@ -135,61 +157,46 @@ def _experts_here(w, mesh):
     return dims, first * n, n
 
 
+def _experts(p, xe, dtype):
+    """The expert FFN (batched swiglu over E), fp32 accumulation, bf16
+    between: [E,C,d] -> [E,C,d]."""
+    g = L.bmatmul(xe, p.wi)
+    u = L.bmatmul(xe, p.wu)
+    h = torch.nn.functional.silu(g.float()).to(dtype) * u
+    return L.bmatmul(h, p.wo)
+
+
 def moe_apply(p, cfg, x, routes=None):
     """x: [B,S,d] -> (y [B,S,d], aux_loss).  ``routes``, a list, gets
     (expert ids [T,k], kept [T*k] in the sorted pair order) appended."""
-    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    if is_dtensor(x):
+        return _moe_on_mesh(p, cfg, x, routes)
     m = cfg.moe
     b, s, d = x.shape
     t = b * s
     e = m.n_experts
-    mesh = x.device_mesh if isinstance(x, DTensor) else None
-    if mesh is not None:      # the global tokens and router on every rank
-        x_in, x = x, _replicated(x)
-        rp = types.SimpleNamespace(router=_replicated(p.router))
-        ep, e0, e_here = _experts_here(p.wi, mesh)
-        xe_pl = [Shard(0) if pl == Shard(0) else Replicate()
-                 for pl in p.wi.placements]
-    else:
-        rp, ep, e0, e_here = p, (), 0, e
     xt = x.reshape(t, d)
-    gates, idx, aux = route(rp, cfg, xt)                   # [T,k]
+    gates, idx, aux = route(p, cfg, xt, s)                 # [T,k]
     k = m.n_experts_per_tok
     c = capacity(cfg, t)
     order, e_sorted, t_sorted, pos, keep = dispatch(idx, e, c)
     if routes is not None:
         routes.append((idx.detach(), keep.detach()))
     g_sorted = gates.reshape(-1)[order]
-    mine = keep
-    if ep:                    # this rank's experts only
-        mine = keep & (e_sorted >= e0) & (e_sorted < e0 + e_here)
-        xt, g_sorted = _sum_grad(xt, mesh, ep), _sum_grad(g_sorted, mesh, ep)
 
     # the reference's out-of-bounds "drop" scatter: a dropped pair goes to
     # a spare row (E, C) that is cut away, so no host sync picks the kept
-    dest_e = torch.where(mine, e_sorted - e0, e_here)
-    dest_c = torch.where(mine, pos, c)
-    buf = torch.zeros((e_here + 1, c + 1, d), dtype=x.dtype, device=x.device)
-    buf[dest_e, dest_c] = shard_activation(xt[t_sorted], "batch")
-    xe = buf[:e_here, :c]
-    if mesh is not None:
-        xe = DTensor.from_local(xe, mesh, xe_pl, run_check=False)
-    xe = shard_activation(xe, "expert")                    # [E,C,d] E->model
-
-    # expert FFN (batched swiglu over E), fp32 accumulation, bf16 between
-    g = L.bmatmul(xe, p.wi)
-    u = L.bmatmul(xe, p.wu)
-    h = torch.nn.functional.silu(g.float()).to(x.dtype) * u
-    ye = shard_activation(L.bmatmul(h, p.wo), "expert")
-    if mesh is not None:
-        ye = ye.redistribute(mesh, xe_pl).to_local()
+    dest_e = torch.where(keep, e_sorted, e)
+    dest_c = torch.where(keep, pos, c)
+    buf = torch.zeros((e + 1, c + 1, d), dtype=x.dtype, device=x.device)
+    buf[dest_e, dest_c] = xt[t_sorted]
+    ye = _experts(p, buf[:e, :c], x.dtype)
 
     # combine: gather back, gate-weight, then per token its pairs in
     # ascending expert order (the reference's scatter-add order)
-    y_pairs = ye[torch.clamp(dest_e, max=e_here - 1),
+    y_pairs = ye[torch.clamp(dest_e, max=e - 1),
                  torch.clamp(dest_c, max=c - 1)]
-    y_pairs = y_pairs * (g_sorted * mine)[:, None].to(x.dtype)
-    y_pairs = shard_activation(y_pairs, "batch")
+    y_pairs = y_pairs * (g_sorted * keep)[:, None].to(x.dtype)
     rank = torch.empty_like(order)
     rank[order] = torch.arange(t * k, device=x.device)     # pair -> sorted slot
     by_expert = torch.sort(idx, dim=-1).indices            # [T,k]
@@ -197,15 +204,92 @@ def moe_apply(p, cfg, x, routes=None):
     yt = torch.zeros((t, d), dtype=x.dtype, device=x.device)
     for j in range(k):
         yt = yt + y_pairs[slots[:, j]]
-    y = shard_activation(yt, "batch").view(b, s, d)
-    if mesh is not None:      # summed over the expert axes
-        x = x_in
-        y = DTensor.from_local(y, mesh, [
-            Partial() if i in ep else Replicate() for i in range(mesh.ndim)],
-            run_check=False).redistribute(mesh, [
-                Replicate() if pl.is_partial() else pl for pl in x.placements])
-        aux = _as_replicated(aux, mesh)
+    y = yt.view(b, s, d)
+    if m.n_shared_experts:
+        y = y + L.swiglu(p.shared, x)
+    return y, aux
 
+
+def _moe_on_mesh(p, cfg, x, routes):
+    """`moe_apply` of a DTensor ``x``, in the reference's layout
+    (``src/repro/models/moe.py:91-116``): the pairs and tokens a rank
+    holds are its own data shard's ([T*k/dp, d], [T/dp, d]), the expert
+    buffers its own experts' ([E/ep, C, d], E over ``model``)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    m = cfg.moe
+    mesh = x.device_mesh
+    b, s, d = x.shape
+    t, k, e = b * s, m.n_experts_per_tok, m.n_experts
+    c = capacity(cfg, t)
+    ep, e0, e_here = _experts_here(p.wi, mesh)
+    xe_pl = [Shard(0) if pl == Shard(0) else Replicate()
+             for pl in p.wi.placements]
+    # the tokens stay on their data shard: x's batch shards over the mesh
+    # dims that do not split the experts, gathered over the others
+    tok = tuple(i for i, pl in enumerate(x.placements)
+                if pl == Shard(0) and mesh.size(i) > 1 and i not in ep)
+    tok_pl = [Shard(0) if i in tok else Replicate() for i in range(mesh.ndim)]
+    b0, b_here = shard_block(b, mesh, tok)
+    t0, t_here = b0 * s, b_here * s
+    xl = x.redistribute(mesh, tok_pl).to_local().reshape(t_here, d)
+
+    # route the rank's own tokens (the router gathered; its gradient is
+    # partial over the token dims); the plan stays global, so the pairs
+    # dropped at capacity are one device's
+    router = p.router.redistribute(mesh, [Replicate()] * mesh.ndim).to_local(
+        grad_placements=[Partial() if i in tok else Replicate()
+                         for i in range(mesh.ndim)])
+    gates, idx_here, logits = _top_k(router, cfg, xl, s)
+    me = reduce_partial(torch.softmax(logits, dim=-1).sum(dim=0), mesh,
+                        tok) / t                              # [E]
+    idx = DTensor.from_local(
+        idx_here.view(b_here, s, k), mesh, tok_pl, run_check=False,
+        shape=(b, s, k), stride=(s * k, k, 1)).full_tensor().view(t, k)
+    aux = _as_replicated(_aux(cfg, me, idx), mesh)
+    order, _, _, pos, keep = dispatch(idx, e, c)
+    if routes is not None:
+        routes.append((idx.detach(), keep.detach()))
+    slot = torch.empty_like(order)
+    slot[order] = torch.arange(t * k, device=x.device)     # pair -> sorted slot
+    slot = slot[t0 * k:(t0 + t_here) * k].view(t_here, k)  # the rank's pairs
+    mine = keep[slot] & (idx_here >= e0) & (idx_here < e0 + e_here)
+
+    # dispatch: each rank writes its own kept pairs for its own experts
+    # into a flat [E/ep * C + 1, d] buffer (the last row takes the rest and
+    # is cut away); every slot has one writer over the token dims, so
+    # their sum is the one-device buffer (but for -0.0 + 0.0 = +0.0)
+    dest = torch.where(mine, (idx_here - e0) * c + pos[slot], e_here * c)
+    buf = torch.zeros((e_here * c + 1, d), dtype=x.dtype, device=x.device)
+    buf[dest] = _sum_grad(xl, mesh, ep)[:, None]           # k pairs a token
+    xe = DTensor.from_local(
+        buf[:e_here * c].view(e_here, c, d), mesh,
+        [Partial() if i in tok else pl for i, pl in enumerate(xe_pl)],
+        run_check=False).redistribute(mesh, xe_pl)
+    del buf                   # the sum is a tensor of its own: free the parts
+    xe = shard_activation(xe, "expert")                    # [E,C,d] E->model
+    ye = shard_activation(_experts(p, xe, x.dtype), "expert")
+    del xe                    # autograd keeps what the backward needs
+    # a rank reads only its own tokens' rows: ye's gradient is partial
+    # over the token dims
+    ye = ye.redistribute(mesh, xe_pl).to_local(grad_placements=[
+        Partial() if i in tok else pl for i, pl in enumerate(xe_pl)])
+    ye = ye.reshape(e_here * c, d)
+
+    # combine: gate-weight, then per token its pairs in ascending expert
+    # order; a partial sum over the expert dims
+    w = (_sum_grad(gates, mesh, ep) * mine).to(x.dtype)
+    by_expert = torch.sort(idx_here, dim=-1).indices       # [T/dp,k]
+    dest = torch.gather(dest, 1, by_expert).clamp(max=e_here * c - 1)
+    w = torch.gather(w, 1, by_expert)
+    yt = torch.zeros((t_here, d), dtype=x.dtype, device=x.device)
+    for j in range(k):
+        yt = yt + ye[dest[:, j]] * w[:, j, None]
+    y = DTensor.from_local(
+        yt.view(b_here, s, d), mesh, [
+            Shard(0) if i in tok else Partial() if i in ep else Replicate()
+            for i in range(mesh.ndim)], run_check=False, shape=(b, s, d),
+        stride=(s * d, d, 1)).redistribute(mesh, [
+            Replicate() if pl.is_partial() else pl for pl in x.placements])
     if m.n_shared_experts:
         y = y + L.swiglu(p.shared, x)
     return y, aux

@@ -11,7 +11,11 @@ fake 16 x 16 mesh at the global count over the shard product; traces
 reduced configs' train, prefill and decode on fake meshes of 4 and 16 ranks
 (every key of the reference's JSON, FLOPs and collectives above 0); and
 holds ``correct_cell``'s extrapolation equal to the direct full-depth count
-for a reduced dense, MoE, xLSTM and Zamba config.  No card is needed.
+for a reduced dense, MoE, xLSTM and Zamba config; and traces a reduced MoE
+prefill on (4, 1) and (2, 2) to show that the MoE layer keeps the
+reference's layout on a rank: no tensor larger than its own pairs [T*k/dp,
+d] or its own experts' buffers [E/ep, C + 1, max(d, ff)].  No card is
+needed.
 """
 import contextlib
 import dataclasses
@@ -27,9 +31,11 @@ from repro_torch.distributed.sharding import (P, LMMesh,
                                               largest_divisible_prefix,
                                               placements)
 from repro_torch.launch import analysis as A
+from repro_torch.launch import dryrun as D
 from repro_torch.launch.correction import correct_cell, stack_knobs
 from repro_torch.launch.dryrun import lower_cell, rank0_shard
 from repro_torch.launch.mesh import make_fake_mesh, release_mesh
+from repro_torch.models import moe as M
 from repro_torch.models.analysis_flags import (card_routes,
                                                card_routes_active,
                                                single_chunk,
@@ -119,7 +125,7 @@ def test_sharded_mm_counts_per_rank():
 KEYS = {"arch", "shape", "mesh", "n_chips", "n_params", "n_active_params",
         "microbatches", "lower_s", "compile_s", "memory", "cost",
         "collective_bytes", "collective_bytes_total", "model_flops",
-        "useful_flops_ratio", "roofline"}
+        "useful_flops_ratio", "roofline", "peak_tensors"}
 
 
 @pytest.mark.parametrize("mesh_shape", [(2, 2), (4, 4)], ids=["4", "16"])
@@ -142,6 +148,8 @@ def test_lower_cell_keys(mesh_shape):
             assert r["collective_bytes_total"] > 0
             assert r["memory"]["peak_bytes_per_device"] \
                 >= r["memory"]["argument_bytes"] > 0
+            assert 0 < sum(b for b, _, _ in r["peak_tensors"]) \
+                <= r["memory"]["peak_bytes_per_device"]
             assert r["n_chips"] == mesh.size
             assert r["mesh"] == "x".join(map(str, mesh_shape))
             json.dumps(r)
@@ -168,3 +176,44 @@ def test_correction_equals_direct_count(tmp_path, arch, counts, shape):
     assert d["corrected"]["full"] == list(counts)
     assert d["corrected"]["equals_direct"] == [True, True, True], \
         (d["corrected"], d["cost"], d["collective_bytes_total"])
+
+
+@pytest.mark.parametrize("mesh_shape", [(4, 1), (2, 2)], ids=["4x1", "2x2"])
+def test_moe_holds_only_its_own_pairs(monkeypatch, mesh_shape):
+    """The reference shards the MoE's pairs over the data axes and its
+    expert buffers over ``model`` (``src/repro/models/moe.py:91-116``): a
+    rank's largest MoE tensors are [T*k/dp, d] and [E/ep, C, max(d, ff)]
+    (+ the spare row), never the global tokens' [T*k, d] pairs."""
+    cfg = get_config("deepseek-v3-671b").reduced()
+    cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, capacity_factor=0.5))
+    shape = ShapeConfig("p", 32, 8, "prefill")
+    m, d = cfg.moe, cfg.d_model
+    t = shape.global_batch * shape.seq_len
+    dp, ep = mesh_shape
+    bound = max(t * m.n_experts_per_tok // dp * d,
+                m.n_experts // ep * (M.capacity(cfg, t) + 1)
+                * max(d, m.d_ff_expert))
+    assert t * m.n_experts_per_tok * d > bound     # the global pairs show
+    inside, sizes = [0], []
+
+    class Sizes(A.OpCounter):
+        def track(self, x):
+            super().track(x)
+            if inside[0] and x.is_floating_point():
+                sizes.append((x.numel(), tuple(x.shape)))
+
+    forward = M.MoE.forward
+
+    def counted(self, x):
+        inside[0] += 1
+        try:
+            return forward(self, x)
+        finally:
+            inside[0] -= 1
+
+    monkeypatch.setattr(M.MoE, "forward", counted)
+    monkeypatch.setattr(D, "OpCounter", Sizes)
+    with fake_mesh(mesh_shape) as mesh:
+        lower_cell(cfg, shape, mesh)
+    assert sizes
+    assert max(sizes)[0] <= bound, (max(sizes), bound)

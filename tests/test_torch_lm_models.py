@@ -150,11 +150,11 @@ def test_forward_bfloat16(ref, monkeypatch):
     margins = []
     route = M.route
 
-    def recording(p, c, x):
+    def recording(p, c, x, seq=None):
         k = c.moe.n_experts_per_tok
         top = torch.sigmoid(x.float() @ p.router).topk(k + 1).values
         margins.append((top[:, k - 1] - top[:, k]).view(B, -1))
-        return route(p, c, x)
+        return route(p, c, x, seq)
 
     monkeypatch.setattr(M, "route", recording)
     with torch.inference_mode():

@@ -9,7 +9,9 @@ reference's, a mesh of shapes only on both), each parameter's spec equal to
 the reference's ``param_pspec_tree`` spec with the stacked axes removed
 (the port's names map to the reference's paths as ``convert`` maps them),
 and the state, serving-parameter, batch and cache specs of every arch x
-applicable shape.  Exact.
+applicable shape.  Exact.  Also `shard_block` (a rank's rows of a dim
+sharded over mesh dims) against the nested ``torch.chunk`` split that
+DTensor's ``Shard`` makes.
 """
 from types import SimpleNamespace
 
@@ -30,7 +32,7 @@ from repro_torch.configs import (ARCH_IDS, SHAPES, applicable_shapes,
 from repro_torch.distributed import specs as SP
 from repro_torch.distributed.sharding import (
     LMMesh, P, activation_dp_over_model, dp_axes, param_pspec_tree,
-    pspec_for, reference_path, resolve_spec)
+    pspec_for, reference_path, resolve_spec, shard_block)
 from repro_torch.models import build_model
 from repro_torch.optim import AdamW
 from repro_torch.train.step import TrainStepConfig
@@ -213,3 +215,21 @@ def test_placements_follow_the_spec():
         == [Shard(0), Shard(0), Replicate()]
     assert placements(P(), MESH) == [Replicate(), Replicate()]
     assert torch.empty(2, device="meta").is_meta
+
+
+@pytest.mark.parametrize("n", [12, 7, 3, 1])
+def test_shard_block_is_the_chunk_split(n):
+    """A dim of ``n`` over mesh dims of sizes (2, 3), major first, uneven
+    and empty blocks included: each rank's (first, length) is its nested
+    ``torch.chunk`` block."""
+    sizes = (2, 3)
+    for r0 in range(2):
+        for r1 in range(3):
+            mesh = SimpleNamespace(size=sizes.__getitem__,
+                                   get_local_rank=(r0, r1).__getitem__)
+            first, length = shard_block(n, mesh, (0, 1))
+            want = torch.arange(n)
+            for r, m in ((r0, 2), (r1, 3)):
+                parts = want.chunk(m)
+                want = parts[r] if r < len(parts) else want[:0]
+            assert list(range(first, first + length)) == want.tolist()
