@@ -376,6 +376,10 @@ LAUNCH_B, LAUNCH_S = 8, 256        # launch/train.py's default batch
 LM_MESH_STEPS, LM_MESH_TOL, LM_MESH_LR, LM_MESH_WARMUP = 20, 2e-2, 3e-3, 5
 DSV3_LAYERS, DSV3_STEPS = 4, 2
 DSV3_BATCH = {(1, 4): (4, 256), (2, 2): (32, 512)}     # mesh: (B, S)
+DSV3_PREFILL = ((2, 2), 16, 512)   # mesh, B (8 chunks of 2 rows), S
+# smollm's largest loss gap to one card that this script measured on 4 x
+# NVIDIA H100 80GB HBM3 (700 W) before sharded products rounded once
+SMOLLM_GAPS_BEFORE = {"4x1": 1.155e-3, "2x2": 3.306e-3}
 # device kernel names of each wrapper's kernels (the profiler's keys)
 DEVICE_NAMES = {"harris": ("harris_kernel",), "fast": ("fast_tiled",),
                 "blur": ("blur_tiled", "blur_small"),
@@ -2805,8 +2809,11 @@ def lm_worker_main(kind: str, shape, out_dir: Path) -> int:
     (4, 1) run saves its final state; a (2, 2) run restores it after
     training and holds it bitwise); ``dsv3`` trains deepseek-v3-671b cut to
     DSV3_LAYERS layers DSV3_STEPS steps (B x S of DSV3_BATCH) and keeps its
-    MoE layer's input, router and routes of the first step.  Writes rank
-    0's figures."""
+    MoE layer's input, router and routes of the first step;
+    ``dsv3_prefill`` runs its chunked prefill (`prefill_worker`).  Writes
+    rank 0's figures."""
+    if kind == "dsv3_prefill":
+        return prefill_worker(shape, out_dir)
     import torch
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
@@ -2926,22 +2933,95 @@ def lm_worker_main(kind: str, shape, out_dir: Path) -> int:
     return 0
 
 
+def prefill_worker(shape, out_dir: Path) -> int:
+    """One rank of deepseek-v3-671b's bf16 prefill (DSV3_LAYERS layers,
+    weights from seed 0, serving placements) on the mesh ``shape``, B x S
+    of DSV3_PREFILL in the config's ``prefill_chunks``: the logits, the
+    first MoE layer's input and router, its routes and drops per chunk,
+    and the prefill's ms (the second of two runs, host clock ending in a
+    synchronize).  Writes rank 0's figures."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    sys.path.insert(0, str(ROOT / "src"))
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import synthetic_lm_batch
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.distributed import specs as SP
+    from repro_torch.launch import train as T
+    from repro_torch.models import build_model
+    torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
+    dev = torch.device("cuda", torch.cuda.current_device())
+    dist.init_process_group("nccl")
+    mesh = SH.LMMesh.from_device_mesh(init_device_mesh(
+        "cuda", shape, mesh_dim_names=("data", "model")))
+    cfg = get_config("deepseek-v3-671b").replace(n_layers=DSV3_LAYERS)
+    _, b, s = DSV3_PREFILL
+    model = build_model(cfg, dev).init(
+        torch.Generator(device=dev).manual_seed(0))
+    seen, times = {}, []
+    with T._on_mesh(mesh, cfg), torch.no_grad():
+        SH.shard_module(model, mesh, SP.to_named(SP.params_pspecs(
+            SP.params_abstract(model), mesh, serving=True), mesh))
+        torch.cuda.empty_cache()
+        tokens = torch.from_numpy(synthetic_lm_batch(
+            b, s, cfg.vocab_size, seed=0)["tokens"]).long().to(dev)
+        batch = {"tokens": tokens}
+        batch = SH.distribute(batch, SP.to_named(SP.batch_pspecs(
+            batch, mesh), mesh), mesh)
+        moe = next(m for m in model.modules() if hasattr(m, "routes"))
+        moe.routes = []
+
+        def keep_input(mod, args):
+            if "x" not in seen:
+                seen.update(x=args[0].full_tensor().cpu(),
+                            router=mod.router.full_tensor().cpu())
+        hook = moe.register_forward_pre_hook(keep_input)
+        for i in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, _ = model.prefill(batch)
+            logits = logits.full_tensor()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            if i == 0:
+                hook.remove()
+                seen["routes"] = [(idx.cpu(), keep.cpu())
+                                  for idx, keep in moe.routes]
+                moe.routes = None
+                seen["logits"] = logits.float().cpu()
+        peak = torch.cuda.max_memory_allocated()
+    if dist.get_rank() == 0:
+        seen.update(prefill_s=times, peak_bytes=peak, chunks=cfg.prefill_chunks)
+        torch.save(seen, out_dir / f"dsv3_prefill_{'x'.join(map(str, shape))}"
+                   ".pt")
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
 def _tree_at(tree, key):
     for part in key.split("/"):
         tree = tree[part]
     return tree
 
 
-def torchrun_lm(kind, shape, out_dir, n):
+def torchrun_lm_raw(kind, shape, out_dir, n):
     """``chip_smoke.py --lm-worker`` on ``n`` cards under torchrun."""
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
            "--nproc-per-node", str(n), str(ROOT / "chip_smoke.py"),
            "--lm-worker", kind, "x".join(map(str, shape)), str(out_dir)]
-    t0 = time.perf_counter()
     done = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
     require(done.returncode == 0, f"torchrun {kind} {shape} exited "
             f"{done.returncode}:\n{done.stdout[-2000:]}\n"
             f"{done.stderr[-4000:]}")
+
+
+def torchrun_lm(kind, shape, out_dir, n):
+    """`torchrun_lm_raw`, then rank 0's JSON figures and the wall."""
+    t0 = time.perf_counter()
+    torchrun_lm_raw(kind, shape, out_dir, n)
     tag = "x".join(map(str, shape))
     out = json.loads((out_dir / f"{kind}_{tag}.json").read_text())
     out["wall_s"] = time.perf_counter() - t0
@@ -3055,6 +3135,72 @@ def dsv3_mesh_run(torch, dev, root, shape, predict, card):
     return f
 
 
+def dsv3_prefill_run(torch, dev, root, card):
+    """deepseek-v3-671b's bf16 chunked prefill (DSV3_LAYERS layers) on the
+    4 cards' mesh of DSV3_PREFILL: finite logits of the right shape; each
+    chunk's routes and drops of the first MoE layer equal to one card's on
+    the same MoE input and router (chunk by chunk, each with its own
+    capacity); the logits beside one card's chunked prefill of the same
+    weights and tokens.  Returns the figures."""
+    import types
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import synthetic_lm_batch
+    from repro_torch.models import build_model
+    from repro_torch.models import moe as M
+    shape, b, s = DSV3_PREFILL
+    tag = "x".join(map(str, shape))
+    t0 = time.perf_counter()
+    torchrun_lm_raw("dsv3_prefill", shape, root, 4)
+    wall = time.perf_counter() - t0
+    seen = torch.load(root / f"dsv3_prefill_{tag}.pt")
+    cfg = get_config("deepseek-v3-671b").replace(n_layers=DSV3_LAYERS)
+    nc = seen["chunks"]
+    require(nc == cfg.prefill_chunks > 1 and len(seen["routes"]) == nc,
+            f"deepseek-v3 prefill {tag}: {len(seen['routes'])} route sets "
+            f"for {cfg.prefill_chunks} chunks")
+    logits = seen["logits"]
+    require(tuple(logits.shape) == (b, 1, cfg.vocab_size)
+            and bool(torch.isfinite(logits).all()),
+            f"deepseek-v3 prefill {tag}: logits {tuple(logits.shape)} not "
+            f"finite or of a wrong shape")
+    rp = types.SimpleNamespace(router=seen["router"].to(dev))
+    x = seen["x"].to(dev)
+    rows, dropped = b // nc, 0
+    for c, (want_idx, want_keep) in enumerate(seen["routes"]):
+        xt = x[c * rows:(c + 1) * rows].reshape(-1, x.shape[-1])
+        _, idx, _ = M.route(rp, cfg, xt, s)
+        *_, keep = M.dispatch(idx, cfg.moe.n_experts,
+                              M.capacity(cfg, xt.shape[0]))
+        require(torch.equal(idx.cpu(), want_idx)
+                and torch.equal(keep.cpu(), want_keep),
+                f"deepseek-v3 prefill {tag}: chunk {c}'s routes or drops "
+                f"differ from one card's on the same MoE input and router")
+        dropped += int((~want_keep).sum())
+    pairs = sum(int(k.numel()) for _, k in seen["routes"])
+    del x, rp
+    # one card's chunked prefill of the same weights and tokens
+    model = build_model(cfg, dev).init(
+        torch.Generator(device=dev).manual_seed(0))
+    tokens = torch.from_numpy(synthetic_lm_batch(
+        b, s, cfg.vocab_size, seed=0)["tokens"]).long().to(dev)
+    one, _ = model.prefill({"tokens": tokens})
+    diff = max_abs(logits.to(dev), one.float())
+    del model, one
+    torch.cuda.empty_cache()
+    f = dict(mesh=list(shape), batch=[b, s], chunks=nc, pairs=pairs,
+             dropped_pairs=dropped, prefill_ms=1e3 * seen["prefill_s"][-1],
+             peak_gib=seen["peak_bytes"] / 2 ** 30,
+             max_abs_logit_diff_one_card=diff, wall_s=wall)
+    log(f"  deepseek-v3-671b prefill, {DSV3_LAYERS} layers in bf16 on {tag} "
+        f"({card}), B {b} x S {s} in {nc} chunks: every chunk's routes and "
+        f"{dropped} of {pairs} pairs dropped = one card's on the same MoE "
+        f"input (each chunk at its own capacity); logits finite, within "
+        f"{diff:.4g} of one card's chunked prefill (bf16, not gated); "
+        f"{f['prefill_ms']:.1f} ms, peak {f['peak_gib']:.2f} GiB on rank 0")
+    return f
+
+
 def lm_mesh_phase(torch, dev, n_cards):
     """``--mesh-cards``: the LM on a mesh of 4 cards (see the constants
     above).  Returns the figures."""
@@ -3109,7 +3255,7 @@ def lm_mesh_phase(torch, dev, n_cards):
         f = figures[f"smollm_{tag}"]
         log(f"  smollm-135m on {tag} ({card}; {LM_MESH_STEPS} steps, B "
             f"{LAUNCH_B} x S {LAUNCH_S}): losses within {diff:.4g} of one "
-            f"card, "
+            f"card (before: {SMOLLM_GAPS_BEFORE[tag]:.4g}), "
             f"{f['step_ms']:.1f} ms a step ({f['tokens_per_s']:.0f} tokens/s;"
             f" one card {figures['one_card']['step_ms']:.1f} ms), peak "
             f"{max(f['peak_gib']):.2f} GiB a card (dry run "
@@ -3141,6 +3287,7 @@ def lm_mesh_phase(torch, dev, n_cards):
         tag = "x".join(map(str, shape))
         figures[f"dsv3_{tag}"] = dsv3_mesh_run(torch, dev, root, shape,
                                                preds[f"dsv3_{tag}"], card)
+    figures["dsv3_prefill"] = dsv3_prefill_run(torch, dev, root, card)
     shutil.rmtree(root, ignore_errors=True)
     return figures
 
@@ -3518,6 +3665,26 @@ def main() -> int:
     scene_counts = {alg: res_k[alg]["per_tile_count"].tolist()
                     for alg in PAPER_ALGORITHMS}
     del res_k2, res_p
+    # the reference's level-by-level SIFT baseline with kernels (a blur
+    # launch a level, the 26 neighbours stacked) against the engine's
+    # route, octave 0 of QUARTER tiles: the same operations, bitwise
+    from repro_torch.core import detectors as D
+    sift_thr = cfg.sift_contrast_threshold / cfg.scales_per_octave
+
+    def sift_fused():
+        return D.sift_dog_response(tiles[:QUARTER], 1, cfg.scales_per_octave,
+                                   sift_thr, use_kernels=True)[0]
+
+    def sift_levelwise():
+        return D.sift_dog_response_levelwise(
+            tiles[:QUARTER], 1, cfg.scales_per_octave, sift_thr,
+            use_kernels=True)[0]
+    require(torch.equal(sift_levelwise(), sift_fused()),
+            "sift_dog_response_levelwise (kernels) differs from the fused "
+            "route")
+    log(f"  sift_dog_response_levelwise with kernels = the engine's route "
+        f"bitwise on {QUARTER} tiles (octave 0): {cuda_ms(sift_levelwise):.3f}"
+        f" ms against {cuda_ms(sift_fused):.3f} ms")
 
     phase_done("3 (main path)")
 

@@ -16,8 +16,9 @@ import torch
 
 from repro_torch.core.padding import reflect_pad
 from repro_torch.core.pyramid import (
-    blur_separable, box_sum, downsample2, f32, fused_octave_response,
-    integral_image, sobel_gradients, sqrt_rn,
+    blur_separable, blur_separable_seed, box_sum, dog_pyramid, downsample2,
+    f32, fused_octave_response, gaussian_pyramid, integral_image,
+    sobel_gradients, sqrt_rn,
 )
 
 
@@ -136,6 +137,35 @@ def sift_dog_response(img: torch.Tensor, n_octaves: int = 4,
             use_kernels=use_kernels)
         responses.append(resp)
         base = downsample2(seed)
+    return responses
+
+
+def sift_dog_response_levelwise(img: torch.Tensor, n_octaves: int = 4,
+                                scales_per_octave: int = 3,
+                                contrast_threshold: float = 0.04,
+                                use_kernels: bool = False):
+    """The seed's level-by-level SIFT response (`gaussian_pyramid` with
+    `blur_separable_seed` -> `dog_pyramid` -> the 26 neighbours stacked):
+    the baseline that the fused `sift_dog_response` is held to, bitwise
+    (the same operations on the same values).  Not on the engine's path."""
+    octs = gaussian_pyramid(img, n_octaves, scales_per_octave,
+                            use_kernels=use_kernels,
+                            blur_fn=blur_separable_seed)
+    responses = []
+    for d in dog_pyramid(octs):                            # [..., S, H, W]
+        s = d.shape[-3]
+        mid = d[..., 1:s - 1, :, :]
+        h, w = mid.shape[-2:]
+        p = reflect_pad(d, 1)
+        neigh = torch.stack([
+            p[..., 1 + ds:1 + ds + s - 2, 1 + dy:1 + dy + h, 1 + dx:1 + dx + w]
+            for ds in (-1, 0, 1) for dy in (-1, 0, 1) for dx in (-1, 0, 1)
+            if (ds, dy, dx) != (0, 0, 0)])
+        is_ext = (mid > neigh.amax(dim=0)) | (mid < neigh.amin(dim=0))
+        a = mid.abs()
+        resp = torch.where(is_ext & (a > f32(contrast_threshold)), a,
+                           torch.zeros_like(a))
+        responses.append(resp.amax(dim=-3))                # over scales
     return responses
 
 

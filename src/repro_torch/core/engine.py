@@ -138,6 +138,18 @@ def _select_and_describe(spec: AlgorithmSpec, cfg: DifetConfig, tiles,
     return out
 
 
+def extract_tile(algorithm: str, cfg: DifetConfig, tile: torch.Tensor,
+                 header: torch.Tensor, use_kernels: bool = True):
+    """The DIFET 'map function' for one tile [H, W] and its header (the
+    paper's pseudo-code: detect, describe, emit): a dict of fixed-shape
+    features, as `extract_tile_multi` gives them for a batch of one."""
+    spec = ALGORITHMS[algorithm]
+    tiles, headers = tile[None], header[None]
+    resp = spec.response(tiles, cfg, use_kernels)
+    out = _select_and_describe(spec, cfg, tiles, headers, resp, use_kernels)
+    return {k: v[0] for k, v in out.items()}
+
+
 def iter_tile_multi(algorithms, cfg: DifetConfig, tiles: torch.Tensor,
                     headers: torch.Tensor, use_kernels: bool = True):
     """`extract_tile_multi` one algorithm at a time: yields ``(algorithm,

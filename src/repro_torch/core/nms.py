@@ -74,3 +74,19 @@ def topk_keypoints(resp: torch.Tensor, k: int, threshold: float,
     ys = torch.div(idx, w, rounding_mode="floor").to(torch.int32)
     xs = (idx % w).to(torch.int32)
     return ys, xs, scores, valid
+
+
+def merge_topk(scores_a, payload_a, scores_b, payload_b, k: int):
+    """Merge two top-K sets (the reduce's 'shuffle' step): the k largest of
+    both score sets along the last dim, in `stable_topk`'s order (ties to
+    the smaller index, ``a`` before ``b``), and each payload leaf (a tensor,
+    or a dict, list or tuple of them) gathered at the same positions."""
+    top, idx = stable_topk(torch.cat([scores_a, scores_b], dim=-1), k)
+
+    def take(a, b):
+        if isinstance(a, dict):
+            return {key: take(a[key], b[key]) for key in a}
+        if isinstance(a, (list, tuple)):
+            return type(a)(take(x, y) for x, y in zip(a, b))
+        return torch.gather(torch.cat([a, b], dim=-1), -1, idx)
+    return top, take(payload_a, payload_b)

@@ -14,7 +14,7 @@ import functools
 import numpy as np
 import torch
 
-from repro_torch.core.padding import reflect_pad
+from repro_torch.core.padding import reflect_indices, reflect_pad
 
 
 def f32(x: float) -> float:
@@ -65,6 +65,31 @@ def blur_separable(img: torch.Tensor, sigma: float,
     r = (len(taps) - 1) // 2
     h, w = img.shape[-2:]
     return blur_valid(reflect_pad(img, r), taps, h, w)
+
+
+def blur_separable_seed(img: torch.Tensor, sigma: float,
+                        use_kernels: bool = False) -> torch.Tensor:
+    """The seed's blur formulation: reflect-pad per pass, taps along the
+    last dim, transposed between passes.  The same arithmetic as
+    `blur_separable`, in the same order, hence bitwise equal to it; kept as
+    the level-by-level baseline (`gaussian_pyramid`,
+    `detectors.sift_dog_response_levelwise`)."""
+    if use_kernels:
+        from repro_torch.kernels import ops
+        return ops.gaussian_blur(img, sigma)
+    taps = gaussian_kernel_1d(float(sigma))
+    r = (len(taps) - 1) // 2
+
+    def conv_last(x):
+        n = x.shape[-1]
+        xp = x.index_select(-1, reflect_indices(n, r, r, x.device))
+        out = float(taps[0]) * xp[..., 0:n]
+        for i in range(1, len(taps)):
+            out = out + float(taps[i]) * xp[..., i:i + n]
+        return out
+
+    out = conv_last(img)                                   # along W
+    return conv_last(out.transpose(-1, -2)).transpose(-1, -2)   # along H
 
 
 def downsample2(img: torch.Tensor) -> torch.Tensor:
@@ -170,6 +195,32 @@ def fused_octave_response(base: torch.Tensor, scales_per_octave: int,
             seed = cur
         prev = cur
     return fused_extrema_response(dogs, contrast_threshold), seed
+
+
+def gaussian_pyramid(img: torch.Tensor, n_octaves: int,
+                     scales_per_octave: int, sigma0: float = 1.6,
+                     use_kernels: bool = False, blur_fn=None):
+    """The level-by-level scale space: a list of octaves, each [...,
+    scales_per_octave + 3, H_o, W_o], every level a tensor of its own (the
+    SIFT path takes `fused_octave_response` instead).  ``blur_fn`` pins the
+    blur formulation (`blur_separable_seed` for the seed's baseline); by
+    default `blur_separable`.  Each octave seeds the next from its level of
+    total sigma ``2 * sigma0``."""
+    blur_fn = blur_separable if blur_fn is None else blur_fn
+    octaves = []
+    base = blur_fn(img, sigma0, use_kernels)
+    for _ in range(n_octaves):
+        levels = [base]
+        for sigma_inc in octave_increments(scales_per_octave, sigma0):
+            levels.append(blur_fn(levels[-1], sigma_inc, use_kernels))
+        octaves.append(torch.stack(levels, dim=-3))
+        base = downsample2(levels[scales_per_octave])
+    return octaves
+
+
+def dog_pyramid(octaves):
+    """Difference-of-Gaussians per octave: [..., n_scales - 1, H, W]."""
+    return [o[..., 1:, :, :] - o[..., :-1, :, :] for o in octaves]
 
 
 def sobel_valid(x: torch.Tensor, h: int, w: int):

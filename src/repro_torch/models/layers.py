@@ -85,11 +85,13 @@ def _on_card(t) -> bool:
 
 def matmul(x, w):
     """x @ w with fp32 accumulation, result in x.dtype (on DTensors,
-    `_dtensor_mm`)."""
+    `_dtensor_mm`: a product summed over ranks is rounded once, after the
+    sum)."""
     if x.dtype == w.dtype and (x.dtype == torch.float32 or _on_card(x)):
-        return _dtensor_mm(x, w, torch.mm) if is_dtensor(x) else x @ w
+        return _dtensor_mm(x, w, torch.mm, x.dtype) if is_dtensor(x) \
+            else x @ w
     if is_dtensor(x):
-        return _dtensor_mm(x.float(), w.float(), torch.mm).to(x.dtype)
+        return _dtensor_mm(x.float(), w.float(), torch.mm, x.dtype)
     return (x.float() @ w.float()).to(x.dtype)
 
 
@@ -147,14 +149,21 @@ def _mm_plan(pa, pb, nd: int, batched: bool):
     return rep, rep, rep, rep, rep
 
 
-def _dtensor_mm(a, b, local_mm):
+def _dtensor_mm(a, b, local_mm, out_dtype=None):
     """``a @ b`` on DTensors (``a`` [..., K] @ ``b`` [K, N], or batched
     ``[B,M,K] @ [B,K,N]``) as ``local_mm`` on the local shards: each
     operand brought to `_mm_plan`'s placements, the product of the local
     blocks (the leading dims folded into rows, as ``matmul`` folds them),
     and the result wrapped with the placements that layout gives it.  The
     leading dims are never merged on the DTensor: a merge of dims sharded
-    over two mesh axes makes DTensor gather the whole tensor."""
+    over two mesh axes makes DTensor gather the whole tensor.
+
+    ``out_dtype``: the result is cast to it.  Where it is narrower than
+    fp32 and the layout sums over ranks (a row-parallel plan on a mesh
+    axis of more than one rank), the local blocks' product is written in
+    fp32 (`MatmulF32`), the partial sum reduced in fp32 and the sum rounded
+    once, as XLA compiles the reference's ``preferred_element_type=float32``
+    product: no partial leaves in a narrow dtype."""
     from torch.distributed.tensor import DTensor, Replicate
     mesh = a.device_mesh
     if not isinstance(b, DTensor):
@@ -163,6 +172,11 @@ def _dtensor_mm(a, b, local_mm):
     batched = b.dim() == 3
     plans = [_mm_plan(pa, pb, a.dim(), batched)
              for pa, pb in zip(a.placements, b.placements)]
+    summed = any(p[2].is_partial() and mesh.size(i) > 1
+                 for i, p in enumerate(plans))
+    rounds = summed and out_dtype not in (None, torch.float32)
+    if rounds:
+        local_mm = MatmulF32.apply
     a2 = a.redistribute(mesh, [p[0] for p in plans])
     b2 = b.redistribute(mesh, [p[1] for p in plans])
     al = a2.to_local(grad_placements=[p[3] for p in plans])
@@ -173,9 +187,13 @@ def _dtensor_mm(a, b, local_mm):
         out = local_mm(al.reshape(-1, al.shape[-1]), bl).reshape(
             *al.shape[:-1], bl.shape[-1])
     shape = (*a.shape[:-1], b.shape[-1])
-    return DTensor.from_local(out, mesh, [p[2] for p in plans],
-                              run_check=False, shape=torch.Size(shape),
-                              stride=_contiguous_strides(shape))
+    out = DTensor.from_local(out, mesh, [p[2] for p in plans],
+                             run_check=False, shape=torch.Size(shape),
+                             stride=_contiguous_strides(shape))
+    if rounds:
+        out = out.redistribute(mesh, [Replicate() if pl.is_partial() else pl
+                                      for pl in out.placements])
+    return out if out_dtype is None else out.to(out_dtype)
 
 
 def _contiguous_strides(shape):
@@ -228,9 +246,14 @@ def matmul_f32(x, w):
 
 
 def bmatmul(a, b):
-    """Batched a @ b with fp32 accumulation, result in a.dtype."""
+    """Batched a @ b with fp32 accumulation, result in a.dtype (on DTensors,
+    `_dtensor_mm`: an operand split on K alone is gathered, so the experts'
+    FFN keeps [E/ep, C, ff] a rank and sums over no rank)."""
     if a.dtype == b.dtype and (a.dtype == torch.float32 or _on_card(a)):
-        return torch.bmm(a, b)
+        return _dtensor_mm(a, b, torch.bmm, a.dtype) if is_dtensor(a) \
+            else torch.bmm(a, b)
+    if is_dtensor(a):
+        return _dtensor_mm(a.float(), b.float(), torch.bmm, a.dtype)
     return torch.bmm(a.float(), b.float()).to(a.dtype)
 
 

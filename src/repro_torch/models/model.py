@@ -29,6 +29,7 @@ from repro_torch.distributed.sharding import (batch_local, current_mesh,
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
+from repro_torch.models.moe import plan_groups
 
 AUX_LOSS_WEIGHT = 0.01
 Z_LOSS_WEIGHT = 1e-4
@@ -161,14 +162,20 @@ class BaseLM(L.Module):
         """Prefill, processing the request batch in ``prefill_chunks``
         sequential chunks where the batch divides (bounds the MoE archs'
         activation and dispatch peak); the chunks' logits and caches are
-        joined back along the batch axis.  On a mesh the batch is split
-        over the data axes already and runs whole: a chunk of global rows
-        would be gathered from every rank (the reference's ``lax.map``
-        regroups the batch across devices; the port does not)."""
+        joined back along the batch axis.  On a mesh the batch stays whole
+        on the data axes (a chunk of B / n global rows would not split over
+        them: prefill_32k's 4 rows a chunk against 16 data ranks), and the
+        MoE plans each chunk's rows alone (`moe.plan_groups`): every other
+        layer treats rows independently, so the logits, caches and the
+        pairs dropped at capacity are the chunked run's, as the
+        reference's ``lax.map`` gives them; its memory bound is not."""
         nc = self.cfg.prefill_chunks
         bsz = batch["tokens"].shape[0]
-        if nc <= 1 or bsz % nc or current_mesh() is not None:
+        if nc <= 1 or bsz % nc:
             return self._prefill_once(batch)
+        if current_mesh() is not None:
+            with plan_groups(nc):
+                return self._prefill_once(batch)
         step = bsz // nc
         parts = [self._prefill_once({k: v[i:i + step]
                                      for k, v in batch.items()})

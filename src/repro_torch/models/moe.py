@@ -27,9 +27,14 @@ same `dispatch`, so the pairs dropped at capacity are the one-device
 run's, and the aux loss takes the global counts and mean probabilities.
 What the dispatch and the combine read (the tokens, the gates) has its
 gradient summed over the expert dims; the router's is partial over the
-data dims.
+data dims.  Under `plan_groups(n)` (a chunked prefill on a mesh) the plan
+is made for ``n`` groups of consecutive batch rows, each with its own
+capacity: the pairs the reference's chunks, run one after another, drop.
 """
 from __future__ import annotations
+
+import contextlib
+import threading
 
 import numpy as np
 import torch
@@ -55,6 +60,22 @@ class MoE(L.Module):
 
     def forward(self, x):
         return moe_apply(self, self.cfg, x, routes=self.routes)
+
+
+_state = threading.local()
+
+
+@contextlib.contextmanager
+def plan_groups(n: int):
+    """Within: a MoE forward on a mesh (its batch a multiple of ``n``)
+    plans each of ``n`` groups of consecutive rows alone (its own capacity,
+    its own drops), as ``n`` chunks of the batch run in turn would."""
+    prev = getattr(_state, "groups", 1)
+    _state.groups = n
+    try:
+        yield
+    finally:
+        _state.groups = prev
 
 
 def capacity(cfg, n_tokens: int) -> int:
@@ -114,20 +135,31 @@ def _counts(flat, n: int):
         0, flat, torch.ones_like(flat))
 
 
-def dispatch(idx, n_experts: int, c: int):
+def dispatch(idx, n_experts: int, c: int, groups: int = 1):
     """The reference's dispatch plan for expert ids ``idx`` [T,k]: the
     stable expert order of the flattened pairs, each sorted pair's expert,
     token and slot within its expert, and whether it fits in capacity
-    ``c``."""
+    ``c``.  ``groups``: the tokens form that many consecutive groups, each
+    planned alone (sorted group first, then by expert); a pair's slot is
+    its place in its group plus ``c`` times its group, so an expert has
+    ``groups * c`` slots."""
     t, k = idx.shape
     flat_expert = idx.reshape(-1)
-    order = torch.sort(flat_expert, stable=True).indices
+    key = flat_expert
+    if groups > 1:                     # group-major keys: group * E + expert
+        key = (torch.arange(t * k, device=idx.device) // (t // groups * k)
+               * n_experts + flat_expert)
+    order = torch.sort(key, stable=True).indices
     e_sorted = flat_expert[order]
     t_sorted = order // k                                  # repeat(arange(t), k)
-    counts = _counts(flat_expert, n_experts)
+    sorted_key = key[order] if groups > 1 else e_sorted
+    counts = _counts(key, groups * n_experts)
     seg_start = torch.cumsum(counts, 0) - counts
-    pos = torch.arange(t * k, device=idx.device) - seg_start[e_sorted]
-    return order, e_sorted, t_sorted, pos, pos < c
+    pos = torch.arange(t * k, device=idx.device) - seg_start[sorted_key]
+    keep = pos < c
+    if groups > 1:
+        pos = pos + sorted_key // n_experts * c
+    return order, e_sorted, t_sorted, pos, keep
 
 
 def _as_replicated(t, mesh):
@@ -162,8 +194,31 @@ def _experts(p, xe, dtype):
     between: [E,C,d] -> [E,C,d]."""
     g = L.bmatmul(xe, p.wi)
     u = L.bmatmul(xe, p.wu)
-    h = torch.nn.functional.silu(g.float()).to(dtype) * u
+    if is_dtensor(g):
+        h = _gate_by_slabs(g, u, dtype)
+        del g, u              # autograd keeps what the backward needs
+    else:
+        h = torch.nn.functional.silu(g.float()).to(dtype) * u
     return L.bmatmul(h, p.wo)
+
+
+def _gate_by_slabs(g, u, dtype):
+    """``silu(g)`` in fp32, rounded to ``dtype``, times ``u``, on DTensors
+    of the same placements: on each rank's [E/ep, C, ff] block by slabs of
+    `L.INIT_SLAB` elements, so that no fp32 [E/ep, C, ff] temporary exists
+    (XLA fuses the reference's upcast into the multiply)."""
+    from torch.distributed.tensor import DTensor
+    gl, ul = g.to_local(), u.to_local()
+    ff = gl.shape[-1]
+    gf, uf = gl.reshape(-1, ff), ul.reshape(-1, ff)
+    h = torch.empty(uf.shape, dtype=dtype, device=uf.device)
+    step = max(1, L.INIT_SLAB // ff)
+    for i in range(0, gf.shape[0], step):
+        h[i:i + step] = torch.nn.functional.silu(
+            gf[i:i + step].float()).to(dtype) * uf[i:i + step]
+    return DTensor.from_local(h.view(ul.shape), g.device_mesh, g.placements,
+                              run_check=False, shape=g.shape,
+                              stride=g.stride())
 
 
 def moe_apply(p, cfg, x, routes=None):
@@ -220,7 +275,9 @@ def _moe_on_mesh(p, cfg, x, routes):
     mesh = x.device_mesh
     b, s, d = x.shape
     t, k, e = b * s, m.n_experts_per_tok, m.n_experts
-    c = capacity(cfg, t)
+    groups = getattr(_state, "groups", 1)
+    c = capacity(cfg, t // groups)
+    cg = groups * c                                        # slots an expert
     ep, e0, e_here = _experts_here(p.wi, mesh)
     xe_pl = [Shard(0) if pl == Shard(0) else Replicate()
              for pl in p.wi.placements]
@@ -246,9 +303,12 @@ def _moe_on_mesh(p, cfg, x, routes):
         idx_here.view(b_here, s, k), mesh, tok_pl, run_check=False,
         shape=(b, s, k), stride=(s * k, k, 1)).full_tensor().view(t, k)
     aux = _as_replicated(_aux(cfg, me, idx), mesh)
-    order, _, _, pos, keep = dispatch(idx, e, c)
-    if routes is not None:
-        routes.append((idx.detach(), keep.detach()))
+    order, _, _, pos, keep = dispatch(idx, e, c, groups)
+    if routes is not None:      # a group's pairs follow the group before
+        tg = t // groups
+        routes.extend((idx[i * tg:(i + 1) * tg].detach(),
+                       keep[i * tg * k:(i + 1) * tg * k].detach())
+                      for i in range(groups))
     slot = torch.empty_like(order)
     slot[order] = torch.arange(t * k, device=x.device)     # pair -> sorted slot
     slot = slot[t0 * k:(t0 + t_here) * k].view(t_here, k)  # the rank's pairs
@@ -258,11 +318,11 @@ def _moe_on_mesh(p, cfg, x, routes):
     # into a flat [E/ep * C + 1, d] buffer (the last row takes the rest and
     # is cut away); every slot has one writer over the token dims, so
     # their sum is the one-device buffer (but for -0.0 + 0.0 = +0.0)
-    dest = torch.where(mine, (idx_here - e0) * c + pos[slot], e_here * c)
-    buf = torch.zeros((e_here * c + 1, d), dtype=x.dtype, device=x.device)
+    dest = torch.where(mine, (idx_here - e0) * cg + pos[slot], e_here * cg)
+    buf = torch.zeros((e_here * cg + 1, d), dtype=x.dtype, device=x.device)
     buf[dest] = _sum_grad(xl, mesh, ep)[:, None]           # k pairs a token
     xe = DTensor.from_local(
-        buf[:e_here * c].view(e_here, c, d), mesh,
+        buf[:e_here * cg].view(e_here, cg, d), mesh,
         [Partial() if i in tok else pl for i, pl in enumerate(xe_pl)],
         run_check=False).redistribute(mesh, xe_pl)
     del buf                   # the sum is a tensor of its own: free the parts
@@ -273,13 +333,13 @@ def _moe_on_mesh(p, cfg, x, routes):
     # over the token dims
     ye = ye.redistribute(mesh, xe_pl).to_local(grad_placements=[
         Partial() if i in tok else pl for i, pl in enumerate(xe_pl)])
-    ye = ye.reshape(e_here * c, d)
+    ye = ye.reshape(e_here * cg, d)
 
     # combine: gate-weight, then per token its pairs in ascending expert
     # order; a partial sum over the expert dims
     w = (_sum_grad(gates, mesh, ep) * mine).to(x.dtype)
     by_expert = torch.sort(idx_here, dim=-1).indices       # [T/dp,k]
-    dest = torch.gather(dest, 1, by_expert).clamp(max=e_here * c - 1)
+    dest = torch.gather(dest, 1, by_expert).clamp(max=e_here * cg - 1)
     w = torch.gather(w, 1, by_expert)
     yt = torch.zeros((t_here, d), dtype=x.dtype, device=x.device)
     for j in range(k):

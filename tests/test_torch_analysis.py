@@ -14,8 +14,9 @@ holds ``correct_cell``'s extrapolation equal to the direct full-depth count
 for a reduced dense, MoE, xLSTM and Zamba config; and traces a reduced MoE
 prefill on (4, 1) and (2, 2) to show that the MoE layer keeps the
 reference's layout on a rank: no tensor larger than its own pairs [T*k/dp,
-d] or its own experts' buffers [E/ep, C + 1, max(d, ff)].  No card is
-needed.
+d] or its own experts' buffers [E/ep, C + 1, max(d, ff)], and the experts'
+FFN in the reference's [E/ep, C, ff] (C never split, no partial sum left
+over).  No card is needed.
 """
 import contextlib
 import dataclasses
@@ -35,6 +36,7 @@ from repro_torch.launch import dryrun as D
 from repro_torch.launch.correction import correct_cell, stack_knobs
 from repro_torch.launch.dryrun import lower_cell, rank0_shard
 from repro_torch.launch.mesh import make_fake_mesh, release_mesh
+from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models.analysis_flags import (card_routes,
                                                card_routes_active,
@@ -217,3 +219,40 @@ def test_moe_holds_only_its_own_pairs(monkeypatch, mesh_shape):
         lower_cell(cfg, shape, mesh)
     assert sizes
     assert max(sizes)[0] <= bound, (max(sizes), bound)
+
+
+@pytest.mark.parametrize("mesh_shape", [(4, 1), (2, 2)], ids=["4x1", "2x2"])
+def test_moe_ffn_keeps_the_reference_layout(monkeypatch, mesh_shape):
+    """The reference pins the experts' [E, C, d] buffers to E over
+    ``model`` and never splits C (``src/repro/distributed/sharding.py:
+    199-201``): on a rank g, u and h are [E/ep, C, ff], an expert weight's
+    ``fsdp`` split over ``data`` is gathered, and no product leaves a
+    partial sum (``C`` = the prefill's 8 chunks' capacities)."""
+    cfg = get_config("deepseek-v3-671b").reduced()
+    cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, capacity_factor=0.5))
+    shape = ShapeConfig("p", 32, 8, "prefill")
+    m, nc = cfg.moe, cfg.prefill_chunks
+    t = shape.global_batch * shape.seq_len
+    c = nc * M.capacity(cfg, t // nc)
+    ffn = (m.n_experts // mesh_shape[1], c, m.d_ff_expert)
+    calls = []
+    bmatmul = L.bmatmul
+
+    def recorded(a, b):
+        out = bmatmul(a, b)
+        if hasattr(out, "to_local"):
+            calls.append((tuple(a.to_local().shape),
+                          tuple(out.to_local().shape),
+                          any(p.is_partial() for p in out.placements)))
+        return out
+
+    monkeypatch.setattr(L, "bmatmul", recorded)
+    with fake_mesh(mesh_shape) as mesh:
+        lower_cell(cfg, shape, mesh)
+    n_moe = cfg.n_layers - m.n_dense_layers
+    assert len(calls) == 3 * n_moe, calls
+    for i in range(0, len(calls), 3):
+        (_, g, _), (_, u, _), (h, ye, _) = calls[i:i + 3]
+        assert g == u == h == ffn, (calls[i:i + 3], ffn)
+        assert ye[:2] == ffn[:2], (ye, ffn)
+    assert not any(partial for *_, partial in calls), calls

@@ -21,6 +21,15 @@ Also: a checkpoint saved on (4, 1) restores onto (2, 2) and onto one
 device bit for bit, and ``launch.train`` under ``torchrun --standalone
 --nproc-per-node 2 ... --device cpu --reduced``, checkpointed and resumed,
 ends with the uninterrupted run's state, bit for bit.
+
+Sharded products round once: in bf16, a row-parallel ``matmul`` (K split
+over 4 ranks, and over ``model`` on (2, 2)) and a ``bmatmul`` whose weight
+is split on K match one device but on at most 0.1% of the elements, with a
+mean error against float64 within 1.05x one device's, and no output is a
+bf16 partial.  A mesh prefill keeps ``prefill_chunks``: dbrx and deepseek
+reduced in float32 (B 8 x S 64, 8 chunks) on (4, 1) and (2, 2) give the
+logits, caches and one decode step after them of one device's chunked
+prefill and of the reference's (1e-4), with its routes and drops.
 """
 import dataclasses
 import os
@@ -37,6 +46,7 @@ from repro_torch.checkpoint import CheckpointManager, flatten_state
 from repro_torch.configs import get_config
 from repro_torch.convert import load_reference_tree
 from repro_torch.models import build_model
+from repro_torch.models import layers as L
 from repro_torch.optim import AdamW
 from repro_torch.train.step import TrainStepConfig, make_train_step
 
@@ -49,6 +59,33 @@ MESHES = ((4, 1), (2, 2))
 B, S, LR = 8, 32, 1e-3
 LOSS_TOL = dict(rtol=1e-5, atol=1e-5)
 GRAD_TOL = dict(rtol=1e-4, atol=1e-5)
+PREFILL_ARCHS = ("dbrx-132b", "deepseek-v3-671b")
+PB, PS = 8, 64                  # the prefill's batch: 8 chunks of one row
+PREFILL_TOL = dict(rtol=0, atol=1e-4)
+PRODUCTS = ("matmul_4", "matmul_2x2", "bmatmul_4")
+
+
+def prefill_cfg(get, arch):
+    """A MoE arch reduced, in float32, ``prefill_chunks`` as reduced()
+    leaves it (8) and its own capacity factor, so that chunks drop pairs."""
+    return get(arch).reduced().replace(dtype="float32")
+
+
+def prefill_batch(cfg, seed=1):
+    rng = np.random.RandomState(seed)
+    return (rng.randint(0, cfg.vocab_size, (PB, PS)).astype(np.int32),
+            rng.randint(0, cfg.vocab_size, (PB, 1)).astype(np.int32))
+
+
+def product_inputs(name):
+    """bf16 operands of a sharded product (numpy draws, seed 0)."""
+    rng = np.random.RandomState(0)
+    if name.startswith("matmul"):
+        a, b = rng.randn(256, 1024), rng.randn(1024, 512) / 32
+    else:
+        a, b = rng.randn(2, 128, 1024), rng.randn(2, 1024, 256) / 32
+    return (torch.from_numpy(a.astype(np.float32)).bfloat16(),
+            torch.from_numpy(b.astype(np.float32)).bfloat16())
 
 
 def reduced(get, arch):
@@ -134,6 +171,27 @@ for arch in {archs!r}:
     out.update(flat(jax.device_get(params), arch + "/params/"))
     out.update(flat(jax.device_get(grads), arch + "/grads/"))
     out.update(flat(jax.device_get(new), arch + "/new/"))
+
+# the chunked prefill (lax.map over prefill_chunks) and one decode step
+for arch in {prefill_archs!r}:
+    cfg = get_config(arch).reduced().replace(dtype="float32")
+    model = build_model(cfg)
+    params = model.init(jax.random.PRNGKey(0))
+    rng = np.random.RandomState(1)
+    tokens = rng.randint(0, cfg.vocab_size, ({pb}, {ps})).astype(np.int32)
+    nxt = rng.randint(0, cfg.vocab_size, ({pb}, 1)).astype(np.int32)
+    logits, cache = jax.jit(model.prefill)(params,
+                                           {{"tokens": jnp.asarray(tokens)}})
+    full = jax.tree_util.tree_map(
+        lambda a: jnp.pad(a, [(0, 0), (0, 0), (0, 1)]
+                          + [(0, 0)] * (a.ndim - 3)), cache)
+    step, _ = jax.jit(model.decode_step)(params, full, jnp.asarray(nxt),
+                                         jnp.int32({ps}))
+    key = "prefill/" + arch
+    out.update(flat(jax.device_get(params), key + "/params/"))
+    out[key + "/logits"] = np.asarray(logits)
+    out.update(flat(jax.device_get(cache), key + "/cache/"))
+    out[key + "/decode"] = np.asarray(step)
 np.savez(sys.argv[1], **out)
 """
 
@@ -143,7 +201,8 @@ def reference(tmp_path_factory):
     """The reference's initial parameters, loss, gradients and parameters
     after one step, per arch, on 4 host devices (one JAX process)."""
     root = tmp_path_factory.mktemp("jax_lm_mesh")
-    code = _JAX_MESH.format(archs=ARCHS, b=B, s=S, lr=LR)
+    code = _JAX_MESH.format(archs=ARCHS, b=B, s=S, lr=LR,
+                            prefill_archs=PREFILL_ARCHS, pb=PB, ps=PS)
     env = dict(os.environ, JAX_PLATFORMS="cpu", OMP_NUM_THREADS="1",
                PYTHONPATH=str(SRC),
                XLA_FLAGS="--xla_force_host_platform_device_count=4 "
@@ -165,8 +224,83 @@ def port_model(arch, ref):
                                     unflatten(ref, arch + "/params/"))
 
 
+def prefill_model(arch, ref):
+    cfg = prefill_cfg(get_config, arch)
+    return cfg, load_reference_tree(
+        build_model(cfg, "cpu"), unflatten(ref, f"prefill/{arch}/params/"))
+
+
 def moe_blocks(model):
     return [m for m in model.modules() if hasattr(m, "routes")]
+
+
+def flat_cache(cache, prefix=""):
+    out = {}
+    for k, v in cache.items():
+        if isinstance(v, dict):
+            out.update(flat_cache(v, prefix + k + "/"))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def padded(cache):
+    """A prefill's cache [L, B, S, ...] with one more (empty) slot for a
+    decode step."""
+    if isinstance(cache, dict):
+        return {k: padded(v) for k, v in cache.items()}
+    pad = torch.zeros_like(cache[:, :, :1])
+    return torch.cat([cache, pad], dim=2)
+
+
+def _products(mesh4, mesh22, out):
+    """F1's sharded bf16 products; their full values and whether a bf16
+    partial left them."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    cases = {"matmul_4": (mesh4, L.matmul, [Shard(1)], [Shard(0)]),
+             "matmul_2x2": (mesh22, L.matmul, [Shard(0), Shard(1)],
+                            [Replicate(), Shard(0)]),
+             "bmatmul_4": (mesh4, L.bmatmul, [Replicate()], [Shard(1)])}
+    for name, (mesh, fn, pa, pb) in cases.items():
+        a, b = product_inputs(name)
+        got = fn(distribute_tensor(a, mesh, pa), distribute_tensor(b, mesh,
+                                                                   pb))
+        out[f"product/{name}/partial_bf16"] = np.asarray(
+            got.dtype == torch.bfloat16
+            and any(p.is_partial() for p in got.placements))
+        out[f"product/{name}"] = got.full_tensor().float().numpy()
+
+
+def _prefill_on_mesh(mesh, arch, ref, key, out):
+    """A chunked prefill and one decode step after it on ``mesh``."""
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.distributed import specs as SP
+    cfg, model = prefill_model(arch, ref)
+    tokens, nxt = (torch.from_numpy(t).long() for t in prefill_batch(cfg))
+    SH.shard_module(model, mesh, SP.to_named(SP.params_pspecs(
+        SP.params_abstract(model), mesh, serving=True), mesh))
+    batch = {"tokens": tokens}
+    batch = SH.distribute(batch, SP.to_named(SP.batch_pspecs(batch, mesh),
+                                             mesh), mesh)
+    for m in moe_blocks(model):
+        m.routes = []
+    logits, cache = model.prefill(batch)
+    for j, m in enumerate(moe_blocks(model)):
+        for c, (idx, keep) in enumerate(m.routes):
+            out[f"{key}/routes/{j}/{c}/idx"] = idx.numpy()
+            out[f"{key}/routes/{j}/{c}/keep"] = keep.numpy()
+        m.routes = None
+    out[key + "/logits"] = logits.full_tensor().numpy()
+    cache = {k: v.full_tensor() for k, v in flat_cache(cache).items()}
+    for k, v in cache.items():
+        out[f"{key}/cache/{k}"] = v.numpy()
+    full = padded(unflatten(cache, ""))
+    full = SH.distribute(full, SP.to_named(SP.cache_pspecs(
+        full, mesh, batch_size=PB, max_seq=PS + 1, cfg=cfg), mesh), mesh)
+    tok = SH.distribute({"tokens": nxt}, SP.to_named(SP.batch_pspecs(
+        {"tokens": nxt}, mesh), mesh), mesh)["tokens"]
+    step, _ = model.decode_step(full, tok, PS)
+    out[key + "/decode"] = step.full_tensor().numpy()
 
 
 def _worker(rank, world, rdzv, ref_path, out_dir):
@@ -183,10 +317,18 @@ def _worker(rank, world, rdzv, ref_path, out_dir):
     with np.load(ref_path) as z:
         ref = {k: z[k] for k in z.files}
     out = {}
+    meshes = {}
     for shape in MESHES:
         tag = "x".join(map(str, shape))
-        mesh = SH.LMMesh.from_device_mesh(init_device_mesh(
+        mesh = meshes[shape] = SH.LMMesh.from_device_mesh(init_device_mesh(
             "cpu", shape, mesh_dim_names=("data", "model")))
+        for arch in PREFILL_ARCHS:
+            cfg = prefill_cfg(get_config, arch)
+            with SH.use_mesh(mesh), \
+                    SH.activation_dp_over_model(cfg.dp_over_model), \
+                    implicit_replication():
+                _prefill_on_mesh(mesh, arch, ref, f"prefill/{tag}/{arch}",
+                                 out)
         for arch in ARCHS:
             cfg, model = port_model(arch, ref)
             opt = AdamW()
@@ -230,6 +372,8 @@ def _worker(rank, world, rdzv, ref_path, out_dir):
                         for k, t in flatten_state(restored):
                             assert t.placements == _at(shardings, k), k
                             out[f"restored/{k}"] = t.full_tensor().numpy()
+    _products(init_device_mesh("cpu", (world,)),
+              meshes[(2, 2)].device_mesh, out)
     if rank == 0:
         np.savez(Path(out_dir) / "port.npz", **out)
     dist.barrier()
@@ -406,3 +550,95 @@ def test_launch_train_torchrun_resume(tmp_path):
     assert set(a.files) == set(b.files)
     for k in a.files:
         np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
+@pytest.mark.parametrize("name", PRODUCTS)
+def test_sharded_product_rounds_once(port_mesh, name):
+    """A product summed over ranks is reduced in fp32 and rounded once (as
+    XLA compiles the reference's): one device's result but on a handful of
+    elements, and no output is a bf16 partial."""
+    a, b = product_inputs(name)
+    fn = L.bmatmul if name.startswith("bmatmul") else L.matmul
+    one = fn(a, b).float().numpy()
+    got = port_mesh[f"product/{name}"]
+    assert not port_mesh[f"product/{name}/partial_bf16"]
+    assert got.shape == one.shape
+    exact = (a.double() @ b.double()).numpy()
+    differ = int((got != one).sum())
+    assert differ <= one.size // 1000, (differ, one.size)
+    err, err_one = np.abs(got - exact).mean(), np.abs(one - exact).mean()
+    assert err <= 1.05 * err_one, (err, err_one)
+
+
+def one_device_prefill(arch, ref):
+    """The port's one-device chunked prefill, its routes and one decode
+    step after it."""
+    cfg, model = prefill_model(arch, ref)
+    tokens, nxt = (torch.from_numpy(t).long() for t in prefill_batch(cfg))
+    for m in moe_blocks(model):
+        m.routes = []
+    logits, cache = model.prefill({"tokens": tokens})
+    routes = [list(m.routes) for m in moe_blocks(model)]
+    for m in moe_blocks(model):
+        m.routes = None
+    step, _ = model.decode_step(padded(cache), nxt, PS)
+    return (logits.numpy(), {k: v.numpy() for k, v in
+                             flat_cache(cache).items()}, step.numpy(), routes)
+
+
+PREFILL_CASES = [(a, "x".join(map(str, m))) for a in PREFILL_ARCHS
+                 for m in MESHES]
+
+
+def _prefill_view(port, tag, arch):
+    key = f"prefill/{tag}/{arch}"
+    cache = {k[len(key) + 7:]: v for k, v in port.items()
+             if k.startswith(key + "/cache/")}
+    return port[key + "/logits"], cache, port[key + "/decode"]
+
+
+def _assert_prefill(got, want):
+    (lg, cache, step), (wlg, wcache, wstep) = got, want
+    np.testing.assert_allclose(lg, wlg, **PREFILL_TOL)
+    assert set(cache) == set(wcache)
+    for k in cache:
+        np.testing.assert_allclose(cache[k], wcache[k], **PREFILL_TOL,
+                                   err_msg=k)
+    np.testing.assert_allclose(step, wstep, **PREFILL_TOL)
+
+
+@pytest.mark.parametrize("arch,tag", PREFILL_CASES)
+def test_mesh_prefill_matches_one_device_chunks(port_mesh, reference, arch,
+                                                tag):
+    logits, cache, step, _ = one_device_prefill(arch, reference)
+    _assert_prefill(_prefill_view(port_mesh, tag, arch), (logits, cache,
+                                                          step))
+
+
+@pytest.mark.parametrize("arch,tag", PREFILL_CASES)
+def test_mesh_prefill_matches_reference(port_mesh, reference, arch, tag):
+    key = "prefill/" + arch
+    cache = {k[len(key) + 7:]: v for k, v in reference.items()
+             if k.startswith(key + "/cache/")}
+    _assert_prefill(_prefill_view(port_mesh, tag, arch),
+                    (reference[key + "/logits"], cache,
+                     reference[key + "/decode"]))
+
+
+@pytest.mark.parametrize("arch,tag", PREFILL_CASES)
+def test_mesh_prefill_drops_equal_one_device(port_mesh, reference, arch,
+                                             tag):
+    *_, routes = one_device_prefill(arch, reference)
+    dropped = 0
+    for j, chunks in enumerate(routes):
+        assert len(chunks) == prefill_cfg(get_config, arch).prefill_chunks
+        for c, (idx, keep) in enumerate(chunks):
+            key = f"prefill/{tag}/{arch}/routes/{j}/{c}"
+            np.testing.assert_array_equal(port_mesh[key + "/idx"],
+                                          idx.numpy())
+            np.testing.assert_array_equal(port_mesh[key + "/keep"],
+                                          keep.numpy())
+            dropped += int((~keep).sum())
+        assert f"prefill/{tag}/{arch}/routes/{j}/{len(chunks)}/idx" \
+            not in port_mesh
+    assert dropped > 0, "no pair dropped at this capacity"
