@@ -38,14 +38,20 @@ Run from the root of a checkout, with no arguments: ``python3 chip_smoke.py``.
    (``src/repro_torch/data/reference_counts.json``, written on the CPU by
    ``tests/test_torch_reference_counts.py``: its run without FMA
    contraction, one rounding per operation as the port's; tiles where its
-   FMA run differs are printed).  Then the scale-space
+   FMA run differs are printed), and so must each tile's keypoint rows,
+   columns, valid flags and BRIEF/ORB packed words and the reduce's top
+   fields, held field by field to the file's digests of that run (a SIFT
+   tile whose counts differ between its two runs may match either).
+   Then the scale-space
    kernel's own path: SIFT over the same scene at tile 256 (961 tiles of
    304^2, the reference's ``launch/extract.py`` defaults), where octave 0
    fuses: the kernel must launch, two runs must be bitwise equal, and the
    run is timed; on all 961 tiles, 64 at a time, the kernel route's
    per-tile counts must equal the reference's Pallas route and the plain
    route's its plain route, a tile where the two port routes differ is
-   printed, and where their counts agree the keypoints must too.
+   printed, and where their counts agree the keypoints must too; each
+   route's keypoints and valid flags of every tile (and the kernel route's
+   whole-run reduce) must match the digests of its reference route.
 4. Times each kernel, its twin and a library yardstick where one exists
    (CUDA events around one call, median of 5 after warm-up, and the
    device time per call under ``torch.profiler``), each kernel's bound
@@ -429,8 +435,16 @@ def kernel_label(mangled):
     return names[-1] if names else mangled[-28:]
 
 
+# every log line is also written here (a git-ignored directory), for a
+# caller that keeps only the end of the standard output
+LOG_FILE = ROOT / "chiprun_out" / "chip_smoke.log"
+_log_file = []
+
+
 def log(*args):
     print(*args, flush=True)
+    if _log_file:
+        print(*args, file=_log_file[0], flush=True)
 
 
 def require(cond, what):
@@ -882,6 +896,50 @@ def against_reference(tag, per_tile, modes):
     log(f"  {tag}: per-tile counts equal the reference's (no FMA) on all "
         f"{len(per_tile)} tiles (total {sum(per_tile)}); its FMA run "
         f"differs at {len(moved)} tile(s) (tile, port, FMA run): {moved}")
+
+
+def against_digests(tag, alg, per_tile, modes, result=None):
+    """The port's exact fields against the reference's digests
+    (``reference_counts.json``): each tile's ``ys``, ``xs``, ``valid``
+    (and BRIEF's and ORB's packed words) of the map's output ``per_tile``,
+    and the reduce's top fields of ``result``, equal to the reference's run
+    without FMA ("no_fma").  A SIFT tile where the reference's two runs
+    count differently may match its FMA run instead (and the reduce then
+    too); any other difference fails, naming the tile and the field."""
+    from repro_torch.data import digests as DG
+    exact, fma = modes["no_fma"], modes["fma"]
+    either = set()
+    if alg == "sift":
+        either = {i for i, (a, b) in enumerate(zip(exact["per_tile"],
+                                                    fma["per_tile"]))
+                  if a != b}
+    got = DG.tile_digests({f: per_tile[f].cpu() for f in DG.fields(alg)},
+                          alg)
+    bad, as_fma = [], []
+    for field, tiles in got.items():
+        require(len(tiles) == len(exact["digests"][field]),
+                f"{tag}: {len(tiles)} tiles, the reference has "
+                f"{len(exact['digests'][field])}")
+        for i, d in enumerate(tiles):
+            if d == exact["digests"][field][i]:
+                continue
+            if i in either and d == fma["digests"][field][i]:
+                as_fma.append((i, field))
+            else:
+                bad.append((i, field))
+    require(not bad, f"{tag}: fields differ from the reference's (no FMA) "
+            f"at (tile, field): {bad[:20]}")
+    line = (f"  {tag}: {', '.join(got)} of all {len(got['ys'])} tiles equal "
+            f"the reference's (no FMA)")
+    if result is not None:
+        top = DG.top_digests({k: v.cpu() for k, v in result.items()}, alg)
+        allowed = [exact["top"]] + ([fma["top"]] if as_fma else [])
+        top_bad = [f for f in top if all(top[f] != t[f] for t in allowed)]
+        require(not top_bad, f"{tag}: the reduce's {top_bad} differ from "
+                f"the reference's")
+        line += f", and so do the reduce's {', '.join(DG.TOP[f] for f in top)}"
+    log(line + (f"; as its FMA run at (tile, field) {as_fma}" if as_fma
+                else ""))
 
 
 def register_all(torch, matching, feats, algs, use_kernels):
@@ -2784,19 +2842,30 @@ def analysis_phase(torch):
         finish(proc, f"launch.dryrun {name}")
         a, s = name.split()
         d = json.loads((root / f"16x16__{a}__{s}.json").read_text())
+        if s.startswith("decode"):
+            # the reference's in_shardings of None: replicated tokens
+            require(d["decode_inputs"]["tokens"] == ["R", "R"],
+                    f"dry run {name}: decode tokens placed "
+                    f"{d['decode_inputs']['tokens']}, not replicated")
         cells[name] = dict(
+            counted=d["counted"], decode_inputs=d.get("decode_inputs"),
             trace_s=d["compile_s"], peak_gib=d["memory"][
                 "peak_bytes_per_device"] / 2 ** 30,
             flops=d["cost"]["hlo_flops"], hbm_bytes=d["cost"]["hlo_bytes"],
             collective_bytes=d["collective_bytes"],
             roofline=d["roofline"])
         c = cells[name]
+        route = (c["counted"] if isinstance(c["counted"], str)
+                 else c["counted"]["route"])
+        tokens = (f"; tokens {c['decode_inputs']['tokens']}"
+                  if c["decode_inputs"] else "")
         log(f"  dry run {name} on 16x16 (the H100's constants): "
             f"{c['peak_gib']:.2f} GiB a card, {c['flops']:.3e} FLOPs, "
             f"collectives {c['collective_bytes']}, compute "
             f"{c['roofline']['compute_s']:.3e} s, memory "
             f"{c['roofline']['memory_s']:.3e} s, collective "
-            f"{c['roofline']['collective_s']:.3e} s ({c['trace_s']} s)")
+            f"{c['roofline']['collective_s']:.3e} s ({c['trace_s']} s; "
+            f"counted {route}{tokens})")
     figures["dryrun"] = cells
     figures["wall_s"] = time.perf_counter() - t0
     shutil.rmtree(root, ignore_errors=True)
@@ -3307,6 +3376,8 @@ def mesh_cards_main(n_cards: int) -> int:
         print("chip_smoke: torch.cuda.is_available() is false",
               file=sys.stderr)
         return 2
+    LOG_FILE.parent.mkdir(exist_ok=True)
+    _log_file.append(open(LOG_FILE.with_name("chip_smoke_mesh.log"), "w"))
     if torch.cuda.device_count() < n_cards:
         print(f"chip_smoke: --mesh-cards {n_cards} needs {n_cards} cards, "
               f"this host has {torch.cuda.device_count()}", file=sys.stderr)
@@ -3390,6 +3461,8 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false",
               file=sys.stderr)
         return 2
+    LOG_FILE.parent.mkdir(exist_ok=True)
+    _log_file.append(open(LOG_FILE, "w"))
     sys.path.insert(0, str(ROOT / "src"))
     import numpy as np
     import torch.nn.functional as F
@@ -3662,6 +3735,18 @@ def main() -> int:
                               res[alg]["per_tile_count"].tolist(),
                               {mode: reference["tile512"][mode][alg]
                                for mode in ("fma", "no_fma")})
+    # the exact fields tile by tile: the map's output (the function
+    # extract_features_multi reduces) and the reduce's, each route
+    for use, res in ((True, res_k), (False, res_p)):
+        per = engine.extract_tile_multi(PAPER_ALGORITHMS, cfg, tiles,
+                                        headers.to(torch.int32),
+                                        use_kernels=use)
+        for alg in PAPER_ALGORITHMS:
+            against_digests(f"{alg} ({'kernel' if use else 'plain'} route)",
+                            alg, per[alg],
+                            {mode: reference["tile512"][mode][alg]
+                             for mode in ("fma", "no_fma")}, res[alg])
+        del per
     scene_counts = {alg: res_k[alg]["per_tile_count"].tolist()
                     for alg in PAPER_ALGORITHMS}
     del res_k2, res_p
@@ -3720,12 +3805,14 @@ def main() -> int:
         f"{int(res256['total_count'])}; first run {t256_first:.3f} s, "
         f"median of {REPS} {t256:.4f} s")
     whole_run = res256["per_tile_count"].tolist()
+    whole_top = {k: res256[k] for k in ("top_ys", "top_xs", "top_valid")}
     del res256, res256b
     # both routes on all tiles, QUARTER at a time (the plain route holds a
     # 26-neighbour stack of its whole batch); where a chunk's per-tile
     # counts agree across the routes, so must its keypoints
     t0 = time.perf_counter()
     per_route = {True: [], False: []}
+    fields256 = {True: [], False: []}
     split, same_chunks = [], 0
     # chunks of QUARTER tiles, the last one taking the remainder (a chunk
     # of fewer than 4 tiles would cut the global top-K shorter)
@@ -3738,6 +3825,11 @@ def main() -> int:
         c = {use: r["per_tile_count"].tolist() for use, r in sub.items()}
         for use in (True, False):
             per_route[use] += c[use]
+            mapped = engine.extract_tile_multi(
+                ("sift",), cfg256, tiles256[i:j],
+                headers256[i:j].to(torch.int32), use_kernels=use)["sift"]
+            fields256[use].append({f: mapped[f] for f in ("ys", "xs",
+                                                          "valid")})
         split += [(i + k, a, b) for k, (a, b) in
                   enumerate(zip(c[True], c[False])) if a != b]
         if c[True] == c[False]:
@@ -3752,12 +3844,17 @@ def main() -> int:
         f"(tile, kernel, plain): {split}; keypoints, valid flags, scores and "
         f"descriptors of the {same_chunks} chunk(s) with equal counts equal")
     for use, key in ((True, "use_pallas=True"), (False, "use_pallas=False")):
-        against_reference(f"sift tile 256 ({'kernel' if use else 'plain'} "
-                          f"route vs the reference's {key})",
-                          per_route[use],
-                          {mode: reference["tile256"][mode][key]
-                           for mode in ("fma", "no_fma")})
-    del sub, per_route
+        modes = {mode: reference["tile256"][mode][key]
+                 for mode in ("fma", "no_fma")}
+        tag = (f"sift tile 256 ({'kernel' if use else 'plain'} route vs the "
+               f"reference's {key})")
+        against_reference(tag, per_route[use], modes)
+        # the kernel route's reduce is the whole run's; the plain route
+        # runs in chunks only
+        per = {f: torch.cat([r[f] for r in fields256[use]])
+               for f in ("ys", "xs", "valid")}
+        against_digests(tag, "sift", per, modes, whole_top if use else None)
+    del sub, per_route, fields256, per
 
     phase_done("3a (tile-256 SIFT)")
 

@@ -191,14 +191,105 @@ def brief_descriptors(img: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
     return pack_bits(_sample_pairs(flat, i1, i2)).reshape(n, k, -1)
 
 
+def _moment_sums(prod: torch.Tensor) -> torch.Tensor:
+    """The sums over the last two dims of ``prod`` [..., 31, 31] in the
+    order XLA compiles the reference's moments on the CPU (the fused patch
+    gather, products and ``sum(axis=(-2, -1))``): row by row, each row's
+    columns 0-23 in 4-wide vectors, two accumulators taking alternate
+    vectors (A: columns 0-3, 8-11, 16-19, its lane 0 starting from the sum
+    so far; B: 4-7, 12-15, 20-23), added lane-wise and folded as
+    (l0 + l2) + (l1 + l3), then columns 24-30 one by one.  A moment near 0
+    decides ORB's angle bin (a patch symmetric about its column axis sits
+    on the bin edge at +-pi/2), so the order decides words."""
+    assert prod.shape[-2:] == (31, 31), prod.shape
+    c = prod[..., :24].unflatten(-1, (6, 4))           # [..., row, vec, lane]
+    a = (c[..., 0, :] + c[..., 2, :]) + c[..., 4, :]   # lanes 1-3 of A
+    b = (c[..., 1, :] + c[..., 3, :]) + c[..., 5, :]
+    v2 = b[..., 2] + a[..., 2]
+    v13 = (b[..., 1] + a[..., 1]) + (b[..., 3] + a[..., 3])
+    acc = torch.zeros(prod.shape[:-2], dtype=prod.dtype, device=prod.device)
+    for i in range(31):
+        a0 = ((acc + c[..., i, 0, 0]) + c[..., i, 2, 0]) + c[..., i, 4, 0]
+        acc = ((b[..., i, 0] + a0) + v2[..., i]) + v13[..., i]
+        for j in range(24, 31):
+            acc = acc + prod[..., i, j]
+    return acc
+
+
+def _rn(fn, x: torch.Tensor) -> torch.Tensor:
+    """``fn`` of float32 ``x``, correctly rounded to float32 (computed in
+    float64): as XLA's CPU sin and cos are at ORB's 31 bin angles, where
+    torch's float32 sin and cos are an ulp off on several."""
+    return fn(x.double()).float()
+
+
+_ATANHI = (4.6364760399e-01, 7.8539812565e-01, 9.8279368877e-01,
+           1.5707962513e+00)
+_ATANLO = (5.0121582440e-09, 3.7748947079e-08, 3.4473217170e-08,
+           7.5497894159e-08)
+_AT = (3.3333334327e-01, -2.0000000298e-01, 1.4285714924e-01,
+       -1.1111110449e-01, 9.0908870101e-02, -7.6918758452e-02,
+       6.6610731184e-02, -5.8335702866e-02, 4.9768779427e-02,
+       -3.6531571299e-02, 1.6285819933e-02)
+_PI_O_2, _PI, _PI_LO = 1.5707963705e+00, 3.1415927410e+00, -8.7422776573e-08
+
+
+def _atanf(x: torch.Tensor) -> torch.Tensor:
+    """fdlibm's single-precision atan of float32 x >= 0, op for op (Python
+    constants: a float32 tensor op rounds them to float32, as the C source's
+    float literals are)."""
+    ix = x.view(torch.int32)
+    t = torch.where(ix < 0x3f300000, (2.0 * x - 1.0) / (2.0 + x),
+                    torch.where(ix < 0x3f980000, (x - 1.0) / (x + 1.0),
+                                torch.where(ix < 0x401c0000,
+                                            (x - 1.5) / (1.0 + 1.5 * x),
+                                            -1.0 / x)))
+    t = torch.where(ix < 0x3ee00000, x, t)
+    z = t * t
+    w = z * z
+    a = _AT
+    s1 = z * (a[0] + w * (a[2] + w * (a[4] + w * (a[6] + w * (a[8]
+                                                          + w * a[10])))))
+    s2 = w * (a[1] + w * (a[3] + w * (a[5] + w * (a[7] + w * a[9]))))
+
+    def pick(table):
+        return torch.where(ix < 0x3f980000, torch.where(
+            ix < 0x3f300000, table[0], table[1]), torch.where(
+            ix < 0x401c0000, table[2], table[3]))
+    r = torch.where(ix < 0x3ee00000, t - t * (s1 + s2),
+                    pick(_ATANHI) - ((t * (s1 + s2) - pick(_ATANLO)) - t))
+    r = torch.where(ix < 0x31000000, x, r)
+    big = torch.full_like(x, _ATANHI[3]) + _ATANLO[3]
+    return torch.where(ix >= 0x4c000000, big, r)
+
+
+def atan2f(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """atan2 of finite float32 tensors as fdlibm's ``atan2f`` (glibc's, the
+    one XLA's CPU code calls for the reference's ``jnp.arctan2``), op for
+    op: its results lie up to an ulp from the correctly rounded ones, and
+    ORB's angle bins turn on that ulp at +-pi/2."""
+    hx, hy = x.view(torch.int32), y.view(torch.int32)
+    ix, iy = hx & 0x7fffffff, hy & 0x7fffffff
+    m = ((hy >> 31) & 1) | ((hx >> 30) & 2)
+    z = _atanf(torch.abs(y / x))
+    r = torch.where(m == 0, z, torch.where(m == 1, -z, torch.where(
+        m == 2, _PI - (z - _PI_LO), (z - _PI_LO) - _PI)))
+    r = torch.where(ix == 0, torch.where(hy < 0, -_PI_O_2, _PI_O_2), r)
+    r = torch.where(iy == 0, torch.where(m <= 1, y, torch.where(
+        m == 2, _PI, -_PI)), r)
+    return torch.where(torch.isnan(x) | torch.isnan(y), x + y, r)
+
+
 def orb_orientation(patches: torch.Tensor) -> torch.Tensor:
-    """Intensity-centroid orientation (Rublee et al. 2011): theta [M]."""
+    """Intensity-centroid orientation (Rublee et al. 2011): theta [M].
+    The moments are summed in XLA's order (`_moment_sums`) and the angle
+    taken as the reference's libm takes it (`atan2f`)."""
     p = patches.shape[-1]
     c = (p - 1) / 2.0
     ys = torch.arange(p, device=patches.device, dtype=torch.float32) - c
-    m10 = (patches * ys[None, None, :]).sum(dim=(-2, -1))    # x moment
-    m01 = (patches * ys[None, :, None]).sum(dim=(-2, -1))    # y moment
-    return torch.atan2(m01, m10)
+    m10, m01 = _moment_sums(torch.stack([patches * ys[None, None, :],
+                                         patches * ys[None, :, None]]))
+    return atan2f(m01, m10)
 
 
 def orb_descriptors(img: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
@@ -213,7 +304,7 @@ def orb_descriptors(img: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
     theta = orb_orientation(patches[:, 7:7 + patch, 7:7 + patch])   # [M]
     step = 2 * np.pi / 30.0
     theta_q = torch.round(theta / step) * step
-    cos, sin = torch.cos(theta_q), torch.sin(theta_q)
+    cos, sin = _rn(torch.cos, theta_q), _rn(torch.sin, theta_q)
     pairs = _device_constant(brief_pairs, (n_bits, patch), img.device,
                              torch.float32)
 

@@ -82,11 +82,15 @@ def merge_topk(scores_a, payload_a, scores_b, payload_b, k: int):
     the smaller index, ``a`` before ``b``), and each payload leaf (a tensor,
     or a dict, list or tuple of them) gathered at the same positions."""
     top, idx = stable_topk(torch.cat([scores_a, scores_b], dim=-1), k)
+    return top, _take(payload_a, payload_b, idx)
 
-    def take(a, b):
-        if isinstance(a, dict):
-            return {key: take(a[key], b[key]) for key in a}
-        if isinstance(a, (list, tuple)):
-            return type(a)(take(x, y) for x, y in zip(a, b))
-        return torch.gather(torch.cat([a, b], dim=-1), -1, idx)
-    return top, take(payload_a, payload_b)
+
+def _take(a, b, idx):
+    """`merge_topk`'s gather of one payload leaf pair, or of a dict, list
+    or tuple of them (a function of its own: a nested function that calls
+    itself is a reference cycle)."""
+    if isinstance(a, dict):
+        return {key: _take(a[key], b[key], idx) for key in a}
+    if isinstance(a, (list, tuple)):
+        return type(a)(_take(x, y, idx) for x, y in zip(a, b))
+    return torch.gather(torch.cat([a, b], dim=-1), -1, idx)

@@ -677,20 +677,29 @@ def batch_local(fn, *args, dims: Sequence[int] = (0,)):
         return t.redistribute(mesh, rep).to_local(grad_placements=partial)
 
     out = fn(*(local(a) for a in args))
+    return _back(out, mesh, keep, rep, tuple(lead.shape), dims)
 
-    def back(o):
-        if isinstance(o, torch.Tensor):
-            big = o.dim() >= 2 and all(
-                d < o.dim() and o.shape[d] * _shards(keep, mesh, d)
-                == lead.shape[d] for d in dims)
-            return DTensor.from_local(o, mesh, keep if big else rep,
-                                      run_check=False)
-        if isinstance(o, dict):
-            return {k: back(v) for k, v in o.items()}
-        if isinstance(o, (tuple, list)):
-            return type(o)(back(v) for v in o)
-        return o
-    return back(out)
+
+def _back(o, mesh, keep, rep, lead_shape, dims):
+    """`batch_local`'s outputs as DTensors: those of the first argument's
+    sizes on ``dims`` with its kept placements, the rest replicated.  A
+    function of its own: a nested function that calls itself is a
+    reference cycle, which would keep the first argument alive until the
+    cyclic garbage collector runs."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(o, torch.Tensor):
+        big = o.dim() >= 2 and all(
+            d < o.dim() and o.shape[d] * _shards(keep, mesh, d)
+            == lead_shape[d] for d in dims)
+        return DTensor.from_local(o, mesh, keep if big else rep,
+                                  run_check=False)
+    if isinstance(o, dict):
+        return {k: _back(v, mesh, keep, rep, lead_shape, dims)
+                for k, v in o.items()}
+    if isinstance(o, (tuple, list)):
+        return type(o)(_back(v, mesh, keep, rep, lead_shape, dims)
+                       for v in o)
+    return o
 
 
 def _shards(pls, mesh, dim: int) -> int:

@@ -99,6 +99,7 @@ class OpCounter(TorchDispatchMode):
         self._flop_registry = flop_registry
         self.flops = 0
         self.bytes = 0
+        self.query_bytes = 0
         self.collectives: Dict[str, int] = {}
         self.live = 0
         self.peak = 0
@@ -167,7 +168,10 @@ class OpCounter(TorchDispatchMode):
         if not func.is_view:
             ins = [t for t in tree_leaves((args, kwargs))
                    if isinstance(t, torch.Tensor)]
-            self.bytes += sum(_nbytes(t) for t in ins + outs)
+            moved = sum(_nbytes(t) for t in ins + outs)
+            self.bytes += moved
+            if not outs:
+                self.query_bytes += moved
             seen = {id(t) for t in ins}
             for t in outs:
                 if id(t) not in seen:
@@ -218,6 +222,8 @@ def model_flops(n_params: int, n_tokens: int, kind: str = "train") -> float:
 
 def cost_analysis_terms(counter: OpCounter) -> Dict[str, float]:
     """A counted run's per-rank FLOPs and bytes, under the reference's
-    keys."""
+    keys, and ``query_bytes``: the part of the bytes that ops returning no
+    tensor were counted for (``prim.device`` queries, which move none)."""
     return {"hlo_flops": float(counter.flops),
-            "hlo_bytes": float(counter.bytes)}
+            "hlo_bytes": float(counter.bytes),
+            "query_bytes": float(counter.query_bytes)}

@@ -9,8 +9,10 @@ stack's depth by one, solves the linear model
 
 and extrapolates to the full depths.  The port's stacks are Python loops
 and `analysis.OpCounter` counts every layer it runs, so the extrapolation
-must equal the dry run's direct full-depth count: this module checks that
-the port's counts are linear in depth.  For the same reason the port keeps
+must equal the dry run's full-depth count: this module checks that the
+port's counts are linear in depth.  (Each variant is counted by the dry
+run's route for its cell, `dryrun.count_cell`: directly, or from
+microbatch or sequence probes.)  For the same reason the port keeps
 each config's ``prefill_chunks`` (the reference sets it to 1 because its
 chunk loop is a ``lax.map`` counted once; a chunk's MoE capacity depends on
 its token count, so the port measures the chunks it runs), and
@@ -76,12 +78,15 @@ def variant_points(n_knobs):
 
 
 def measure(cfg, shape, mesh, microbatches: int = 1):
-    """(flops, bytes, collective bytes) of one traced cell."""
-    from repro_torch.launch.dryrun import lower_cell
+    """(flops, bytes, collective bytes) of one cell, counted by the dry
+    run's route for it (`dryrun.count_cell`); a cell counted from depth
+    variants has its variants traced directly."""
+    from repro_torch.launch.dryrun import DEPTH_CELLS, count_cell
     from repro_torch.models.analysis_flags import single_chunk
+    route = "direct" if (cfg.arch_id, shape.name) in DEPTH_CELLS else None
     with single_chunk():
-        r = lower_cell(cfg.replace(unroll_stacks=True), shape, mesh,
-                       microbatches=microbatches)
+        r = count_cell(cfg.replace(unroll_stacks=True), shape, mesh,
+                       microbatches=microbatches, route=route)
     return np.array([r["cost"]["hlo_flops"], r["cost"]["hlo_bytes"],
                      r["collective_bytes_total"]], dtype=np.float64)
 
@@ -113,7 +118,10 @@ def correct_cell(path: Path, mesh, force: bool = False, cfg=None,
         print(f"[skip] {path.name}")
         return d
     cfg = cfg or get_config(d["arch"])
-    shape = shape or SHAPES[d["shape"]]
+    if shape is None:
+        shape = SHAPES[d["shape"]]
+        shape = dataclasses.replace(shape, seq_len=d.get("seq_len",
+                                                         shape.seq_len))
     knobs, full, make = stack_knobs(cfg)
     pts = variant_points(len(knobs))
     print(f"[correct] {path.name}: knobs={knobs} full={full} "

@@ -60,6 +60,19 @@ def _slice(cache, i):
             for k, v in cache.items()}
 
 
+def _gathered(cache, moved):
+    """`batch_sharded`'s gather, recording each (leaf, gathered) pair in
+    ``moved``.  A function of its own: a nested function that calls itself
+    is a reference cycle, which would hold the gathered caches until the
+    cyclic garbage collector runs."""
+    if isinstance(cache, dict):
+        return {k: _gathered(v, moved) for k, v in cache.items()}
+    g = shard_activation(cache, "kv_cache")
+    if g is not cache:
+        moved.append((cache, g))
+    return g
+
+
 @contextlib.contextmanager
 def batch_sharded(cache):
     """A layer's cache for its decode.  On a mesh, each DTensor leaf
@@ -67,16 +80,7 @@ def batch_sharded(cache):
     KV of ``specs.cache_pspecs``) is gathered to the "kv_cache" layout
     for the step, and written back into its own placements after it."""
     moved = []
-
-    def gather(t):
-        if isinstance(t, dict):
-            return {k: gather(v) for k, v in t.items()}
-        g = shard_activation(t, "kv_cache")
-        if g is not t:
-            moved.append((t, g))
-        return g
-
-    yield gather(cache)
+    yield _gathered(cache, moved)
     for t, g in moved:
         t.copy_(g.redistribute(t.device_mesh, t.placements))
 

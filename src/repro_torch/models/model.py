@@ -226,7 +226,7 @@ class BaseLM(L.Module):
 
     @_serving
     def decode_step(self, cache, tokens, pos):
-        h = L.embed(self.emb, tokens)                      # [B,1,D]
+        h = _decode_embed(self.emb, tokens)                # [B,1,D]
         if "dense" in cache:
             h, _ = B.decoder_stack_decode(self.dense_stack, h, cache["dense"],
                                           pos)
@@ -235,6 +235,16 @@ class BaseLM(L.Module):
             h, _ = B.decoder_stack_decode(self.stack, h, cache, pos)
         h = self.final_norm(h, self.cfg.norm_eps)
         return self._unembed(h), cache
+
+
+def _decode_embed(emb, tokens):
+    """A decode step's embedded tokens [B, 1, D] in the hidden layout.  The
+    reference passes the tokens replicated and XLA gives each device the
+    rows of its cache's batch shard; here the rows are taken from the
+    replicated lookup (a local slice): left replicated, each rank would
+    attend the whole batch and gather every cache.  Tokens already sharded
+    as the batch are in that layout."""
+    return shard_activation(L.embed(emb, tokens), "hidden")
 
 
 def _meta(shape, dtype):
@@ -335,7 +345,7 @@ class WhisperModel(BaseLM):
 
     @_serving
     def decode_step(self, cache, tokens, pos):
-        h = L.embed(self.emb, tokens)
+        h = _decode_embed(self.emb, tokens)
         h = h + self.dec_pos[pos:pos + 1].to(h.dtype)
         for i, blk in enumerate(self.dec_stack):
             with B.batch_sharded(B._slice(cache, i)) as c:
@@ -386,7 +396,7 @@ class XLSTMModel(BaseLM):
 
     @_serving
     def decode_step(self, cache, tokens, pos):
-        h = L.embed(self.emb, tokens)
+        h = _decode_embed(self.emb, tokens)
         for g, sup in enumerate(self.stack):
             with B.batch_sharded(B._slice(cache, g)) as c:
                 h = sup.decode(h, c)
@@ -441,7 +451,7 @@ class ZambaModel(BaseLM):
 
     @_serving
     def decode_step(self, cache, tokens, pos):
-        emb0 = L.embed(self.emb, tokens)
+        emb0 = _decode_embed(self.emb, tokens)
         h = emb0
         for g, sup in enumerate(self.stack):
             with B.batch_sharded(B._slice(cache, g)) as c:

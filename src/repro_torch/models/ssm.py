@@ -111,9 +111,10 @@ def _ssd_chunked(x, dt, A, B, C, chunk):
     mask = torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device))
     state = torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
     ys = []
-    for i in range(s // q):
-        sl = slice(i * q, (i + 1) * q)
-        xb, dtb, Bb, Cb = xf[:, sl], dt[:, sl], Bf[:, sl], Cf[:, sl]
+    # the chunks as ``split``'s slices: its backward is one concatenation,
+    # where a slice taken by indexing would add a full-size gradient a chunk
+    for xb, dtb, Bb, Cb in zip(*(t.split(q, dim=1)
+                                 for t in (xf, dt, Bf, Cf))):
         dA = dtb * A                                        # [B,Q,H]
         cum = torch.cumsum(dA, dim=1)
         xdt = xb * dtb[..., None]
@@ -264,10 +265,9 @@ def _mlstm_chunked(q, k, v, log_f, log_i, chunk):
     nvec = torch.zeros((b, h, p), dtype=torch.float32, device=q.device)
     m_run = torch.zeros((b, h), dtype=torch.float32, device=q.device)
     ys = []
-    for c in range(s // Q):
-        sl = slice(c * Q, (c + 1) * Q)
-        qb, kb, vb, lf, li = qf[:, sl], kf[:, sl], vf[:, sl], lff[:, sl], \
-            lif[:, sl]
+    # the chunks as ``split``'s slices, as `_ssd_chunked` takes them
+    for qb, kb, vb, lf, li in zip(*(t.split(Q, dim=1)
+                                    for t in (qf, kf, vf, lff, lif))):
         cumf = torch.cumsum(lf, dim=1)                       # [B,Q,H]
         logd = cumf[:, :, None, :] - cumf[:, None, :, :] + li[:, None, :, :]
         logd = logd.masked_fill(~mask[None, :, :, None], -1e30)
@@ -410,9 +410,9 @@ def slstm_init_state(cfg, batch, device=None):
                             device=device)}
 
 
-def _slstm_cell(p, x_t, st):
+def _slstm_cell(w, r, bias, x_t, st):
     """One sLSTM step.  x_t [B,d] fp32; state dict of [B,d]."""
-    pre = x_t @ p.w + st["h"] @ p.r + p.b
+    pre = x_t @ w + st["h"] @ r + bias
     z_pre, i_pre, f_pre, o_pre = pre.chunk(4, dim=-1)
     z = torch.tanh(z_pre)
     o = torch.sigmoid(o_pre)
@@ -432,20 +432,29 @@ def _slstm_out(p, cfg, h):
     return h + L.swiglu(p.mlp, p.mlp_norm(h, cfg.norm_eps))
 
 
-def slstm_apply(p, cfg, x):
-    """x [B,S,d]; sequential over time (sLSTM is not parallelizable)."""
-    b, s, d = x.shape
-    xf = x.float()
-    st = slstm_init_state(cfg, b, x.device)
+def _slstm_scan(xf, w, r, bias, cfg):
+    """The sLSTM's time loop over xf [B,S,d] fp32: the hidden states
+    [B,S,d].  The steps take ``unbind``'s slices, whose backward is one
+    stack: a slice taken by indexing would add a full-size gradient a
+    step."""
+    st = slstm_init_state(cfg, xf.shape[0], xf.device)
     hs = []
-    for t in range(s):
-        st = _slstm_cell(p, xf[:, t], st)
+    for x_t in xf.unbind(1):
+        st = _slstm_cell(w, r, bias, x_t, st)
         hs.append(st["h"])
-    return _slstm_out(p, cfg, torch.stack(hs, dim=1).to(x.dtype))
+    return torch.stack(hs, dim=1)
+
+
+def slstm_apply(p, cfg, x):
+    """x [B,S,d]; sequential over time (sLSTM is not parallelizable), on
+    each rank's own rows."""
+    h = batch_local(functools.partial(_slstm_scan, cfg=cfg), x.float(),
+                    p.w, p.r, p.b)
+    return _slstm_out(p, cfg, h.to(x.dtype))
 
 
 def slstm_decode(p, cfg, x, state):
-    st = _slstm_cell(p, x[:, 0].float(), state)
+    st = _slstm_cell(p.w, p.r, p.b, x[:, 0].float(), state)
     for name, t in st.items():
         state[name].copy_(t)
     return _slstm_out(p, cfg, st["h"][:, None, :].to(x.dtype)), state

@@ -289,6 +289,41 @@ def test_extract_patches_and_pack_bits_are_exact():
         np.asarray(JDS.pack_bits(bits)).view(np.int32))
 
 
+def test_atan2f_is_the_references_arctan2():
+    """ORB's angle is fdlibm's ``atan2f`` op for op (`DS.atan2f`), which the
+    reference's ``jnp.arctan2`` calls on this CPU: bitwise on random and
+    edge inputs, where ``torch.atan2`` is an ulp away on some."""
+    rng = np.random.RandomState(2)
+    n = 200_000
+    y = (rng.randn(n) * 10.0 ** rng.randint(-12, 6, n)).astype(np.float32)
+    x = (rng.randn(n) * 10.0 ** rng.randint(-12, 6, n)).astype(np.float32)
+    edges = np.array([0.0, -0.0, 1.0, -1.0, 0.4375, 0.6875, 1.1875, 2.4375,
+                      2.0 ** 25, 2.0 ** -29, 3.0e7], np.float32)
+    edges = np.concatenate([edges, np.nextafter(edges, np.float32(np.inf)),
+                            np.nextafter(edges, np.float32(-np.inf))])
+    ey, ex = np.meshgrid(edges, np.array([1.0, -1.0, 0.0, -0.0, 3.0,
+                                          -7.5e-9], np.float32))
+    y = np.concatenate([y, ey.ravel()])
+    x = np.concatenate([x, ex.ravel()])
+    want = np.asarray(jax.jit(jnp.arctan2)(y, x))
+    got = DS.atan2f(torch.from_numpy(y), torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    plain = torch.atan2(torch.from_numpy(y), torch.from_numpy(x)).numpy()
+    assert (plain != want).any()
+
+
+def test_orb_bin_angles_round_once():
+    """ORB's cos and sin at its 31 bin angles equal the reference's (XLA's
+    are correctly rounded there); torch's float32 ones are an ulp off at
+    some, which moves a rotated pair's rounding."""
+    tq = torch.arange(-15, 16, dtype=torch.float32) * (2 * np.pi / 30.0)
+    want = [np.asarray(jax.jit(f)(tq.numpy())) for f in (jnp.cos, jnp.sin)]
+    for fn, w in zip((torch.cos, torch.sin), want):
+        np.testing.assert_array_equal(DS._rn(fn, tq).numpy(), w)
+    assert any((fn(tq).numpy() != w).any()
+               for fn, w in zip((torch.cos, torch.sin), want))
+
+
 @pytest.mark.parametrize("name", ["sift", "surf", "brief", "orb"])
 def test_descriptors_match_reference(name):
     img = scenes(80, 80)

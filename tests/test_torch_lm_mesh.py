@@ -29,7 +29,10 @@ mean error against float64 within 1.05x one device's, and no output is a
 bf16 partial.  A mesh prefill keeps ``prefill_chunks``: dbrx and deepseek
 reduced in float32 (B 8 x S 64, 8 chunks) on (4, 1) and (2, 2) give the
 logits, caches and one decode step after them of one device's chunked
-prefill and of the reference's (1e-4), with its routes and drops.
+prefill and of the reference's (1e-4), with its routes and drops; the
+decode step with its tokens replicated on every axis (the dry run's
+placement) gives the logits and cache of the step with them sharded as
+the batch (1e-4).
 """
 import dataclasses
 import os
@@ -294,13 +297,22 @@ def _prefill_on_mesh(mesh, arch, ref, key, out):
     cache = {k: v.full_tensor() for k, v in flat_cache(cache).items()}
     for k, v in cache.items():
         out[f"{key}/cache/{k}"] = v.numpy()
-    full = padded(unflatten(cache, ""))
-    full = SH.distribute(full, SP.to_named(SP.cache_pspecs(
-        full, mesh, batch_size=PB, max_seq=PS + 1, cfg=cfg), mesh), mesh)
-    tok = SH.distribute({"tokens": nxt}, SP.to_named(SP.batch_pspecs(
+    from torch.distributed.tensor import Replicate, distribute_tensor
+    sharded = SH.distribute({"tokens": nxt}, SP.to_named(SP.batch_pspecs(
         {"tokens": nxt}, mesh), mesh), mesh)["tokens"]
-    step, _ = model.decode_step(full, tok, PS)
-    out[key + "/decode"] = step.full_tensor().numpy()
+    # the dry run's placement of decode tokens, the reference's
+    # in_shardings of None: replicated on every axis
+    replicated = distribute_tensor(nxt, mesh.device_mesh,
+                                   [Replicate()] * len(mesh.dims))
+    for name, tok in (("decode", sharded), ("decode_replicated",
+                                            replicated)):
+        full = padded(unflatten(cache, ""))
+        full = SH.distribute(full, SP.to_named(SP.cache_pspecs(
+            full, mesh, batch_size=PB, max_seq=PS + 1, cfg=cfg), mesh), mesh)
+        step, after = model.decode_step(full, tok, PS)
+        out[f"{key}/{name}"] = step.full_tensor().numpy()
+        for k, v in flat_cache(after).items():
+            out[f"{key}/{name}_cache/{k}"] = v.full_tensor().numpy()
 
 
 def _worker(rank, world, rdzv, ref_path, out_dir):
@@ -623,6 +635,23 @@ def test_mesh_prefill_matches_reference(port_mesh, reference, arch, tag):
     _assert_prefill(_prefill_view(port_mesh, tag, arch),
                     (reference[key + "/logits"], cache,
                      reference[key + "/decode"]))
+
+
+@pytest.mark.parametrize("arch,tag", PREFILL_CASES)
+def test_mesh_decode_replicated_tokens(port_mesh, arch, tag):
+    """A decode step whose tokens are replicated on every mesh axis (the
+    dry run's placement, the reference's ``in_shardings`` of None) gives
+    the logits and cache of the step with tokens sharded as the batch."""
+    key = f"prefill/{tag}/{arch}"
+    np.testing.assert_allclose(port_mesh[key + "/decode_replicated"],
+                               port_mesh[key + "/decode"], **PREFILL_TOL)
+    names = [k[len(key) + 14:] for k in port_mesh
+             if k.startswith(key + "/decode_cache/")]
+    assert names
+    for k in names:
+        np.testing.assert_allclose(
+            port_mesh[f"{key}/decode_replicated_cache/{k}"],
+            port_mesh[f"{key}/decode_cache/{k}"], **PREFILL_TOL, err_msg=k)
 
 
 @pytest.mark.parametrize("arch,tag", PREFILL_CASES)
