@@ -10,8 +10,9 @@ counts
 
 * FLOPs of the matrix products (``torch.utils.flop_counter``'s registry:
   mm, bmm, addmm, baddbmm, convolutions, attention);
-* bytes: each op's input and output tensors, views excepted.  An upper
-  bound: XLA's "bytes accessed" counts after fusion, here every
+* bytes: each op's input and output tensors, views and ops that return no
+  tensor (``.device`` and other queries, which move nothing) excepted.
+  An upper bound: XLA's "bytes accessed" counts after fusion, here every
   intermediate goes to memory and back;
 * collectives, by the reference's kind names, in bytes of each result on
   this rank;
@@ -99,7 +100,6 @@ class OpCounter(TorchDispatchMode):
         self._flop_registry = flop_registry
         self.flops = 0
         self.bytes = 0
-        self.query_bytes = 0
         self.collectives: Dict[str, int] = {}
         self.live = 0
         self.peak = 0
@@ -165,13 +165,10 @@ class OpCounter(TorchDispatchMode):
                 fargs, fkw = args[:2], {}
             self.flops += self._flop_registry[packet](*fargs, **fkw,
                                                       out_val=out)
-        if not func.is_view:
+        if not func.is_view and outs:
             ins = [t for t in tree_leaves((args, kwargs))
                    if isinstance(t, torch.Tensor)]
-            moved = sum(_nbytes(t) for t in ins + outs)
-            self.bytes += moved
-            if not outs:
-                self.query_bytes += moved
+            self.bytes += sum(_nbytes(t) for t in ins + outs)
             seen = {id(t) for t in ins}
             for t in outs:
                 if id(t) not in seen:
@@ -222,8 +219,6 @@ def model_flops(n_params: int, n_tokens: int, kind: str = "train") -> float:
 
 def cost_analysis_terms(counter: OpCounter) -> Dict[str, float]:
     """A counted run's per-rank FLOPs and bytes, under the reference's
-    keys, and ``query_bytes``: the part of the bytes that ops returning no
-    tensor were counted for (``prim.device`` queries, which move none)."""
+    keys."""
     return {"hlo_flops": float(counter.flops),
-            "hlo_bytes": float(counter.bytes),
-            "query_bytes": float(counter.query_bytes)}
+            "hlo_bytes": float(counter.bytes)}

@@ -20,7 +20,7 @@ elsewhere (a CPU-only build cannot run autograd on fake CUDA tensors).
 A cell whose direct trace takes too long is counted from probes that
 trace in a fraction of the time (`count_cell`): train cells of many
 microbatches from two smaller microbatch counts, xLSTM's long sequences
-from three shorter ones at smaller stacks, zamba2's train step from
+from two shorter ones at smaller stacks, zamba2's train step from
 smaller layer stacks.
 Each route fits the model its docstring states, exactly, and equals the
 direct trace on every cell it was held to (``PERF.md`` §5); the result
@@ -111,7 +111,6 @@ def _split_counts(batch, n):
     with counter:
         _split_microbatches(batch, n)
     return {"hlo_flops": counter.flops, "hlo_bytes": counter.bytes,
-            "query_bytes": counter.query_bytes,
             "collectives": dict(counter.collectives)}
 
 
@@ -274,8 +273,8 @@ def _combined(probes, weights, less=None, plus=None):
     entry where the probes' differ (the same storages at every probe, in
     the same order), less ``less(probe, i)``'s figures before and plus
     ``plus``'s after.  Each of ``less`` and ``plus`` gives {"hlo_flops",
-    "hlo_bytes", "query_bytes", "collectives": {kind: bytes}}."""
-    cost = ("hlo_flops", "hlo_bytes", "query_bytes")
+    "hlo_bytes", "collectives": {kind: bytes}}."""
+    cost = ("hlo_flops", "hlo_bytes")
 
     def figures(r, i):
         f = {k: int(r["cost"][k]) for k in cost}
@@ -370,18 +369,17 @@ def _by_microbatches(cfg, shape, mesh, n, ms):
 # sequence lengths of the probes of the ``sequence`` route: multiples of
 # the mLSTM's chunk (256), at least two chunks (a loop of one chunk skips
 # a copy in the backward of its split)
-SEQ_PROBES = (512, 768, 1024)
+SEQ_PROBES = (512, 768)
 
 
 def _by_sequence(cfg, shape, mesh, microbatches):
     """An xLSTM train or prefill cell from probes at shorter sequences and
     smaller stacks.  The sLSTM's time loop runs S identical steps, the
-    mLSTM S/256 chunks, every other op is per token, and the one term
-    above linear is the bytes that each step's ``.device`` query of the
-    whole input is counted for (``query_bytes``): every figure is a
-    polynomial of degree 2 in S, fitted exactly through three probes.  The
-    probes run at `_depth_variants`' depths (affine in each stack's depth),
-    which costs 3/4 of probes of the whole stack."""
+    mLSTM S/256 chunks, and every other op is per token: every figure is
+    affine in S, fitted exactly through two probes (a query that moves no
+    bytes counts none, `analysis.OpCounter`).  The probes run at
+    `_depth_variants`' depths (affine in each stack's depth), which costs
+    3/4 of probes of the whole stack."""
     knobs, pts, cfgs, w_depth = _depth_variants(cfg)
     w_seq = lagrange(SEQ_PROBES, shape.seq_len)
     runs = [(c, p, a, s, b) for c, p, a in zip(cfgs, pts, w_depth) if a
@@ -394,8 +392,7 @@ def _by_sequence(cfg, shape, mesh, microbatches):
         "route": "sequence", "probes": list(SEQ_PROBES), "knobs": list(knobs),
         "depths": [p for _, p, _, s, _ in runs if s == SEQ_PROBES[0]],
         "model": "f(n, S) = a(S) + n * b(S) for every figure, a and b "
-                 "polynomials in S of degree 2 (1 but for the bytes' "
-                 "queries)",
+                 "affine in S",
         "probe_s": [r["lower_s"] + r["compile_s"] for r in probes]}
     return _finish(res, cfg, shape, mesh)
 

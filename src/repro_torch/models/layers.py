@@ -95,22 +95,23 @@ def matmul(x, w):
     return (x.float() @ w.float()).to(x.dtype)
 
 
-class MatmulF32(torch.autograd.Function):
-    """a @ b (``[M,K] @ [K,N]``, or batched ``[B,M,K] @ [B,K,N]``) with an
-    fp32 result.  On the card the forward is one bf16 GEMM writing fp32
-    (``out_dtype``), an overload that has no derivative of its own; the
-    backward is what JAX's transpose of ``dot_general(...,
-    preferred_element_type=float32)`` computes: the fp32 cotangent times the
-    other operand in fp32, rounded once to that operand's dtype.  On the CPU
-    the forward upcasts both operands (the tests reach the backward so)."""
+def _f32_product(a, b):
+    mm = torch.bmm if a.dim() == 3 else torch.mm
+    if _on_card(a):
+        return mm(a, b, out_dtype=torch.float32)
+    return mm(a.float(), b.float())
+
+
+class _Operands(torch.autograd.Function):
+    """`MatmulF32`'s backward node: it saves ``a`` and ``b`` and returns a
+    stand-in for the product ([.., M, N] of one fp32 element); its backward
+    is the product's."""
 
     @staticmethod
     def forward(ctx, a, b):
         ctx.save_for_backward(a, b)
-        mm = torch.bmm if a.dim() == 3 else torch.mm
-        if _on_card(a):
-            return mm(a, b, out_dtype=torch.float32)
-        return mm(a.float(), b.float())
+        return torch.zeros((), dtype=torch.float32, device=a.device).expand(
+            *a.shape[:-1], b.shape[-1])
 
     @staticmethod
     def backward(ctx, g):
@@ -123,14 +124,56 @@ class MatmulF32(torch.autograd.Function):
         return ga, gb
 
 
-def _mm_plan(pa, pb, nd: int, batched: bool):
+class _Product(torch.autograd.Function):
+    """The product of `MatmulF32` (``a`` and ``b`` held apart from the
+    graph); the gradient passes to the stand-in unchanged."""
+
+    @staticmethod
+    def forward(ctx, stand_in, a, b):
+        return _f32_product(a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class MatmulF32:
+    """a @ b (``[M,K] @ [K,N]``, or batched ``[B,M,K] @ [B,K,N]``) with an
+    fp32 result.  On the card the forward is one bf16 GEMM writing fp32
+    (``out_dtype``), an overload that has no derivative of its own; the
+    backward is what JAX's transpose of ``dot_general(...,
+    preferred_element_type=float32)`` computes: the fp32 cotangent times the
+    other operand in fp32, rounded once to that operand's dtype.  On the CPU
+    the forward upcasts both operands (the tests reach the backward so).
+
+    The operands are saved (`_Operands`) before the product runs
+    (`_Product`), as autograd saves a native op's: a checkpointed layer's
+    recompute that needs only the operands of its last product stops
+    before that product, as XLA drops the reference's dead recompute."""
+
+    @staticmethod
+    def apply(a, b):
+        if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+            return _Product.apply(_Operands.apply(a, b), a.detach(),
+                                  b.detach())
+        return _f32_product(a, b)
+
+
+def _mm_plan(pa, pb, nd: int, batched: bool, split_k: bool = False):
     """One mesh axis of a DTensor ``a @ b`` (``a`` [..., M, K] of ``nd``
     dims @ ``b`` [K, N], or batched ``[B,M,K] @ [B,K,N]``): the placements
     the operands are brought to, the output's, and those of the operands'
     gradients.  Data-parallel (a on a leading dim), column-parallel (b on
     its columns), row-parallel (both on K: a partial output) and
     batch-parallel layouts run as they are; any other is gathered to one
-    of them (an FSDP weight is all-gathered)."""
+    of them (an FSDP weight is all-gathered).
+
+    A batched product of a replicated ``a`` and a ``b`` split on K (an
+    expert weight's ``fsdp`` split over ``data``) is split as XLA splits
+    the reference's: with ``split_k``, ``a`` is sliced on K and the
+    product is row-parallel (a partial output); else ``b`` stays split
+    here and `_GatherK` gathers it in the forward only (plan ``(rep,
+    Shard(k_b), rep, rep, Shard(k_b))``)."""
     from torch.distributed.tensor import Partial, Replicate, Shard
     rep = Replicate()
     if pa.is_partial():
@@ -140,6 +183,10 @@ def _mm_plan(pa, pb, nd: int, batched: bool):
     if batched and (pa == Shard(0) or pb == Shard(0)):
         return Shard(0), Shard(0), Shard(0), Shard(0), Shard(0)
     k_a, k_b, n_b = nd - 1, (1 if batched else 0), (2 if batched else 1)
+    if batched and pa == rep and pb == Shard(k_b):
+        if not split_k:
+            return rep, pb, rep, rep, pb                   # gathered K
+        pa = Shard(k_a)                  # a slice of a, not a gathered b
     if pa == Shard(k_a) and pb in (Shard(k_b), rep):
         return pa, Shard(k_b), Partial(), pa, Shard(k_b)   # row-parallel
     if pa.is_shard() and pa.dim < k_a and not (batched and pa.dim == 0):
@@ -149,7 +196,60 @@ def _mm_plan(pa, pb, nd: int, batched: bool):
     return rep, rep, rep, rep, rep
 
 
-def _dtensor_mm(a, b, local_mm, out_dtype=None):
+def _split_k(a, b, i: int, rows=None) -> bool:
+    """Whether the batched ``a @ b`` (``a`` replicated, ``b`` split on K
+    over mesh dim ``i``) is split on K there: XLA's choice in the
+    reference's partitioned module, the cheaper collective.  The fp32
+    partial output [B, M, N] all-reduced against ``b`` all-gathered on K:
+    the experts' g and u of a decode or a prefill's chunk (C 8) split on K
+    over ``data``, a train step's or a whole prefill's (C 64 and more)
+    gather the weight.  ``rows``: the M of the reference's product where
+    ``a`` stacks several of them (a chunked prefill's chunks)."""
+    al, bl = a.to_local(), b.to_local()
+    partial = bl.shape[0] * (rows or al.shape[-2]) * bl.shape[-1] * 4
+    gathered = bl.numel() * b.device_mesh.size(i) * bl.element_size()
+    return partial < gathered
+
+
+class _GatherK(torch.autograd.Function):
+    """``local_mm(a, b)`` of local blocks where ``b`` [B, K/n, N] is split
+    on K over some mesh dims (``pls``: its placements) and ``a`` [B, M, K]
+    is whole: the forward gathers ``b``; the backward, as XLA's transpose
+    of the reference's product, uses ``b``'s own slice: ``db = a[..., K
+    slice]^T @ g`` (no gathered gradient to scatter back) and ``da`` the
+    gathered ``g @ b^T`` slices."""
+
+    @staticmethod
+    def forward(ctx, a, b, mesh, pls, local_mm):
+        from torch.distributed.tensor import DTensor, Replicate
+        ctx.mesh, ctx.pls = mesh, pls
+        ctx.save_for_backward(a, b)
+        full = DTensor.from_local(b.detach(), mesh, pls, run_check=False
+                                  ).redistribute(mesh, [Replicate()] *
+                                                 mesh.ndim).to_local()
+        return local_mm(a, full)
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+        a, b = ctx.saved_tensors
+        mesh, pls = ctx.mesh, ctx.pls
+        rep = [Replicate()] * mesh.ndim
+        a_pls = [Shard(2) if pl.is_shard() else pl for pl in pls]
+        ga = gb = None
+        if ctx.needs_input_grad[0]:
+            part = torch.bmm(g, b.to(g.dtype).transpose(1, 2))
+            ga = DTensor.from_local(part, mesh, a_pls, run_check=False
+                                    ).redistribute(mesh, rep).to_local()
+            ga = ga.to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            ak = DTensor.from_local(a, mesh, rep, run_check=False
+                                    ).redistribute(mesh, a_pls).to_local()
+            gb = torch.bmm(ak.to(g.dtype).transpose(1, 2), g).to(b.dtype)
+        return ga, gb, None, None, None
+
+
+def _dtensor_mm(a, b, local_mm, out_dtype=None, rows=None):
     """``a @ b`` on DTensors (``a`` [..., K] @ ``b`` [K, N], or batched
     ``[B,M,K] @ [B,K,N]``) as ``local_mm`` on the local shards: each
     operand brought to `_mm_plan`'s placements, the product of the local
@@ -163,25 +263,37 @@ def _dtensor_mm(a, b, local_mm, out_dtype=None):
     axis of more than one rank), the local blocks' product is written in
     fp32 (`MatmulF32`), the partial sum reduced in fp32 and the sum rounded
     once, as XLA compiles the reference's ``preferred_element_type=float32``
-    product: no partial leaves in a narrow dtype."""
+    product: no partial leaves in a narrow dtype.  A batched product summed
+    over ranks (the experts' g and u split on K) is reduced whatever its
+    dtype: what reads it runs on the local blocks.  ``rows``: see
+    `_split_k`."""
     from torch.distributed.tensor import DTensor, Replicate
     mesh = a.device_mesh
     if not isinstance(b, DTensor):
         b = DTensor.from_local(b, mesh, [Replicate()] * mesh.ndim,
                                run_check=False)
     batched = b.dim() == 3
-    plans = [_mm_plan(pa, pb, a.dim(), batched)
-             for pa, pb in zip(a.placements, b.placements)]
+    plans = [_mm_plan(pa, pb, a.dim(), batched,
+                      batched and mesh.size(i) > 1
+                      and _split_k(a, b, i, rows))
+             for i, (pa, pb) in enumerate(zip(a.placements, b.placements))]
+    gather = [i for i, p in enumerate(plans) if batched and mesh.size(i) > 1
+              and p[0].is_replicate() and p[1].is_shard(1)]
     summed = any(p[2].is_partial() and mesh.size(i) > 1
                  for i, p in enumerate(plans))
     rounds = summed and out_dtype not in (None, torch.float32)
     if rounds:
         local_mm = MatmulF32.apply
+    reduce = rounds or (summed and batched)
     a2 = a.redistribute(mesh, [p[0] for p in plans])
     b2 = b.redistribute(mesh, [p[1] for p in plans])
     al = a2.to_local(grad_placements=[p[3] for p in plans])
     bl = b2.to_local(grad_placements=[p[4] for p in plans])
-    if batched:
+    if gather:
+        out = _GatherK.apply(al, bl, mesh, [
+            p[1] if i in gather else Replicate()
+            for i, p in enumerate(plans)], local_mm)
+    elif batched:
         out = local_mm(al, bl)
     else:
         out = local_mm(al.reshape(-1, al.shape[-1]), bl).reshape(
@@ -190,7 +302,7 @@ def _dtensor_mm(a, b, local_mm, out_dtype=None):
     out = DTensor.from_local(out, mesh, [p[2] for p in plans],
                              run_check=False, shape=torch.Size(shape),
                              stride=_contiguous_strides(shape))
-    if rounds:
+    if reduce:
         out = out.redistribute(mesh, [Replicate() if pl.is_partial() else pl
                                       for pl in out.placements])
     return out if out_dtype is None else out.to(out_dtype)
@@ -245,15 +357,16 @@ def matmul_f32(x, w):
     return x.float() @ w.float()
 
 
-def bmatmul(a, b):
+def bmatmul(a, b, rows=None):
     """Batched a @ b with fp32 accumulation, result in a.dtype (on DTensors,
-    `_dtensor_mm`: an operand split on K alone is gathered, so the experts'
-    FFN keeps [E/ep, C, ff] a rank and sums over no rank)."""
+    `_dtensor_mm`: a weight split on K alone is split as XLA splits the
+    reference's product, on K (partials summed in fp32) or gathered in the
+    forward only, by `_split_k` of ``rows``)."""
     if a.dtype == b.dtype and (a.dtype == torch.float32 or _on_card(a)):
-        return _dtensor_mm(a, b, torch.bmm, a.dtype) if is_dtensor(a) \
-            else torch.bmm(a, b)
+        return _dtensor_mm(a, b, torch.bmm, a.dtype, rows) \
+            if is_dtensor(a) else torch.bmm(a, b)
     if is_dtensor(a):
-        return _dtensor_mm(a.float(), b.float(), torch.bmm, a.dtype)
+        return _dtensor_mm(a.float(), b.float(), torch.bmm, a.dtype, rows)
     return torch.bmm(a.float(), b.float()).to(a.dtype)
 
 

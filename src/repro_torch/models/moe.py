@@ -21,7 +21,10 @@ shard's tokens and holds only their pairs ([T*k/dp, d]), and the experts
 are split over ``model`` on E ("expert"): a rank's [E/ep, C, d] buffer
 takes its own tokens' kept pairs for its own experts and is summed over
 the data dims, its FFN runs on those experts, and its tokens' pairs come
-back from them as a partial sum over the expert dims.  The plan is the
+back from them as a partial sum over the expert dims.  The experts'
+products split over ``data`` as XLA splits the reference's (g and u on
+the weights' split of d, or the weights gathered; `L.bmatmul`), and so
+does the router's over ``model`` (`_router_split`).  The plan is the
 global one: the expert ids [T,k] are gathered and every rank runs the
 same `dispatch`, so the pairs dropped at capacity are the one-device
 run's, and the aux loss takes the global counts and mean probabilities.
@@ -108,8 +111,12 @@ def router_logits(x, router, seq=None):
 
 def _top_k(router, cfg, x, seq):
     """(gates [T,k], expert ids [T,k], logits [T,E]) of tokens ``x``."""
+    return _top_k_of(cfg, router_logits(x, router, seq))
+
+
+def _top_k_of(cfg, logits):
+    """(gates [T,k], expert ids [T,k], logits [T,E]) of router logits."""
     m = cfg.moe
-    logits = router_logits(x, router, seq)
     scores = torch.sigmoid(logits)                        # DeepSeek-V3 gating
     # lax.top_k: descending, ties to the lower index (a stable sort)
     order = torch.sort(scores, dim=-1, descending=True, stable=True).indices
@@ -189,11 +196,12 @@ def _experts_here(w, mesh):
     return dims, first * n, n
 
 
-def _experts(p, xe, dtype):
+def _experts(p, xe, dtype, rows=None):
     """The expert FFN (batched swiglu over E), fp32 accumulation, bf16
-    between: [E,C,d] -> [E,C,d]."""
-    g = L.bmatmul(xe, p.wi)
-    u = L.bmatmul(xe, p.wu)
+    between: [E,C,d] -> [E,C,d].  ``rows``: the slots an expert has in a
+    group of a grouped plan (see `L.bmatmul`)."""
+    g = L.bmatmul(xe, p.wi, rows)
+    u = L.bmatmul(xe, p.wu, rows)
     if is_dtensor(g):
         h = _gate_by_slabs(g, u, dtype)
         del g, u              # autograd keeps what the backward needs
@@ -265,6 +273,40 @@ def moe_apply(p, cfg, x, routes=None):
     return y, aux
 
 
+def _router_split(n_seq, seq, mesh, dims, groups):
+    """The expert dims ``dims`` over which a rank's ``n_seq`` sequences of
+    ``seq`` tokens are routed, split (`_split_router_logits`), or ``()``.
+    XLA splits the reference's router product over ``model`` (on K) in a
+    train step, a decode and a chunked prefill's chunks (dbrx-132b's
+    prefill_32k on (16, 16) too); a prefill run whole gathers the router
+    and routes its tokens whole, and so do sequences that do not split
+    evenly (8 decode tokens a data shard over 16 ranks of ``model``)."""
+    n = int(np.prod([mesh.size(i) for i in dims]))
+    if torch.is_grad_enabled() or groups > 1 or seq == 1:
+        return dims if n_seq % n == 0 else ()
+    return ()
+
+
+def _split_router_logits(xl, router, seq, mesh, dims):
+    """`router_logits` of a rank's tokens ``xl`` [T/dp, d] (sequences of
+    ``seq`` tokens), the sequences split over the mesh dims ``dims`` and
+    the logits gathered: the reference's split on K here on rows, whole
+    sequences a GEMM, so that the logits stay one device's.  The gradient
+    of ``xl`` is summed over ``dims``; the router's is partial over them.
+    No dims: the rank's whole product."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if not dims:
+        return router_logits(xl, router, seq)
+    q0, nq = shard_block(xl.shape[0] // seq, mesh, dims)
+    rows = _sum_grad(xl, mesh, dims)[q0 * seq:(q0 + nq) * seq]
+    e = router.shape[-1]
+    return DTensor.from_local(
+        router_logits(rows, router, seq), mesh,
+        [Shard(0) if i in dims else Replicate() for i in range(mesh.ndim)],
+        run_check=False, shape=(xl.shape[0], e), stride=(e, 1)).redistribute(
+            mesh, [Replicate()] * mesh.ndim).to_local()
+
+
 def _moe_on_mesh(p, cfg, x, routes):
     """`moe_apply` of a DTensor ``x``, in the reference's layout
     (``src/repro/models/moe.py:91-116``): the pairs and tokens a rank
@@ -291,12 +333,15 @@ def _moe_on_mesh(p, cfg, x, routes):
     xl = x.redistribute(mesh, tok_pl).to_local().reshape(t_here, d)
 
     # route the rank's own tokens (the router gathered; its gradient is
-    # partial over the token dims); the plan stays global, so the pairs
-    # dropped at capacity are one device's
+    # partial over the token dims and those its product is split over);
+    # the plan stays global, so the pairs dropped at capacity are one
+    # device's
+    split = _router_split(b_here, s, mesh, ep, groups)
     router = p.router.redistribute(mesh, [Replicate()] * mesh.ndim).to_local(
-        grad_placements=[Partial() if i in tok else Replicate()
+        grad_placements=[Partial() if i in tok or i in split else Replicate()
                          for i in range(mesh.ndim)])
-    gates, idx_here, logits = _top_k(router, cfg, xl, s)
+    gates, idx_here, logits = _top_k_of(
+        cfg, _split_router_logits(xl, router, s, mesh, split))
     me = reduce_partial(torch.softmax(logits, dim=-1).sum(dim=0), mesh,
                         tok) / t                              # [E]
     idx = DTensor.from_local(
@@ -327,7 +372,7 @@ def _moe_on_mesh(p, cfg, x, routes):
         run_check=False).redistribute(mesh, xe_pl)
     del buf                   # the sum is a tensor of its own: free the parts
     xe = shard_activation(xe, "expert")                    # [E,C,d] E->model
-    ye = shard_activation(_experts(p, xe, x.dtype), "expert")
+    ye = shard_activation(_experts(p, xe, x.dtype, c), "expert")
     del xe                    # autograd keeps what the backward needs
     # a rank reads only its own tokens' rows: ye's gradient is partial
     # over the token dims

@@ -15,8 +15,10 @@ for a reduced dense, MoE, xLSTM and Zamba config; and traces a reduced MoE
 prefill on (4, 1) and (2, 2) to show that the MoE layer keeps the
 reference's layout on a rank: no tensor larger than its own pairs [T*k/dp,
 d] or its own experts' buffers [E/ep, C + 1, max(d, ff)], and the experts'
-FFN in the reference's [E/ep, C, ff] (C never split, no partial sum left
-over).  No card is needed.
+FFN in the reference's [E/ep, C, ff] (C never split; g and u split on K
+over ``data`` as the reference's module splits them, their fp32 partials
+summed before they are read; wo's output split on d over ``data``).  No
+card is needed.
 """
 import contextlib
 import dataclasses
@@ -225,34 +227,52 @@ def test_moe_holds_only_its_own_pairs(monkeypatch, mesh_shape):
 def test_moe_ffn_keeps_the_reference_layout(monkeypatch, mesh_shape):
     """The reference pins the experts' [E, C, d] buffers to E over
     ``model`` and never splits C (``src/repro/distributed/sharding.py:
-    199-201``): on a rank g, u and h are [E/ep, C, ff], an expert weight's
-    ``fsdp`` split over ``data`` is gathered, and no product leaves a
-    partial sum (``C`` = the prefill's 8 chunks' capacities)."""
+    199-201``), and its partitioned module of this chunked prefill (a
+    chunk's C 8) splits the experts' products over ``data`` as the
+    weights' ``fsdp`` split lies: g and u contract over the ``data`` split
+    of d ([E/ep, 8, d/dp] x [E/ep, d/dp, ff], fp32 partials summed over
+    ``data``) and wo's output keeps d split over ``data`` ([E/ep, 8, ff] x
+    [E/ep, ff, d/dp]).  On a rank g, u and h are [E/ep, C, ff] (``C`` = the
+    8 chunks' capacities), g's and u's products are partial over
+    ``data`` alone, summed before they are read, and wo's is split on d
+    over ``data``: no weight is gathered."""
+    from torch.distributed.tensor import Partial, Shard
     cfg = get_config("deepseek-v3-671b").reduced()
     cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, capacity_factor=0.5))
     shape = ShapeConfig("p", 32, 8, "prefill")
     m, nc = cfg.moe, cfg.prefill_chunks
     t = shape.global_batch * shape.seq_len
     c = nc * M.capacity(cfg, t // nc)
-    ffn = (m.n_experts // mesh_shape[1], c, m.d_ff_expert)
-    calls = []
-    bmatmul = L.bmatmul
+    dp, ep = mesh_shape
+    ffn = (m.n_experts // ep, c, m.d_ff_expert)
+    calls, plans = [], []
+    bmatmul, mm_plan = L.bmatmul, L._mm_plan
 
-    def recorded(a, b):
-        out = bmatmul(a, b)
+    def planned(*args, **kwargs):
+        plans.append(mm_plan(*args, **kwargs))
+        return plans[-1]
+
+    def recorded(a, b, *args):
+        del plans[:]
+        out = bmatmul(a, b, *args)
         if hasattr(out, "to_local"):
             calls.append((tuple(a.to_local().shape),
                           tuple(out.to_local().shape),
+                          tuple(p[2] for p in plans),
                           any(p.is_partial() for p in out.placements)))
         return out
 
     monkeypatch.setattr(L, "bmatmul", recorded)
+    monkeypatch.setattr(L, "_mm_plan", planned)
     with fake_mesh(mesh_shape) as mesh:
         lower_cell(cfg, shape, mesh)
     n_moe = cfg.n_layers - m.n_dense_layers
     assert len(calls) == 3 * n_moe, calls
     for i in range(0, len(calls), 3):
-        (_, g, _), (_, u, _), (h, ye, _) = calls[i:i + 3]
+        (_, g, pg, _), (_, u, pu, _), (h, ye, po, _) = calls[i:i + 3]
         assert g == u == h == ffn, (calls[i:i + 3], ffn)
-        assert ye[:2] == ffn[:2], (ye, ffn)
+        assert ye == (*ffn[:2], cfg.d_model // dp), (ye, ffn)
+        # mesh dims (data, model): partial over data, E over model
+        assert pg == pu == (Partial(), Shard(0)), (pg, pu)
+        assert po == (Shard(2), Shard(0)), po
     assert not any(partial for *_, partial in calls), calls

@@ -4,7 +4,7 @@ the placement of decode's tokens.
 ``launch/dryrun.py::count_cell`` counts the cells whose direct trace is too
 long from probes: train cells of many microbatches from two smaller
 microbatch counts (the microbatch split counted alone), xLSTM's train and
-prefill from three shorter sequences at smaller stacks, and a cell of
+prefill from two shorter sequences at smaller stacks, and a cell of
 `DEPTH_CELLS` from the depth variants `launch/correction.py` traces. On
 reduced configs on fake meshes, each route must give every figure the
 direct trace gives: FLOPs, bytes, collectives by kind, argument, output,
@@ -20,9 +20,11 @@ import os
 
 import pytest
 import torch
+from torch.utils._pytree import tree_leaves
 
 from repro_torch.configs import SHAPES, ShapeConfig, all_arch_ids, \
     applicable_shapes, get_config
+from repro_torch.launch import analysis as A
 from repro_torch.launch import dryrun as D
 from repro_torch.launch.correction import stack_knobs
 from repro_torch.launch.mesh import make_fake_mesh, release_mesh
@@ -71,18 +73,39 @@ def test_microbatch_route_equals_direct(arch):
     assert_same(direct, routed, "microbatches")
 
 
-def test_sequence_route_equals_direct():
-    """xLSTM's prefill at S 1280 from S 512, 768 and 1024: the sLSTM's
-    S steps, the mLSTM's chunks of 256 and the per-token ops, with the
-    bytes' one term in S^2 (each step's ``.device`` query of the whole
-    input, `OpCounter.query_bytes`)."""
+def test_sequence_route_equals_direct(monkeypatch):
+    """xLSTM's prefill at S 1280 from S 512 and 768: the sLSTM's S steps,
+    the mLSTM's chunks of 256 and the per-token ops, every figure affine
+    in S.  The direct trace's bytes are those of the ops that return a
+    tensor: each sLSTM step's ``.device`` query of the whole input, which
+    returns none, counts no bytes."""
+    queried, moved = [0], [0]
+
+    class Queries(A.OpCounter):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = super().__torch_dispatch__(func, types, args, kwargs)
+            if out is NotImplemented or func.is_view or \
+                    func.namespace in A._COLLECTIVE_NS or \
+                    getattr(A._propagating, "on", False):
+                return out
+            ts = [t for t in tree_leaves((args, kwargs, out))
+                  if isinstance(t, torch.Tensor)]
+            outs = [t for t in tree_leaves(out)
+                    if isinstance(t, torch.Tensor)]
+            (moved if outs else queried)[0] += sum(
+                t.numel() * t.element_size() for t in ts)
+            return out
+
     cfg = get_config("xlstm-350m").reduced()
     shape = ShapeConfig("p", 1280, 4, "prefill")
     with fake_mesh((2, 2)) as mesh:
+        monkeypatch.setattr(D, "OpCounter", Queries)
         direct = D.lower_cell(cfg, shape, mesh)
+        monkeypatch.undo()
         routed = D.count_cell(cfg, shape, mesh, route="sequence")
     assert routed["counted"]["probes"] == list(D.SEQ_PROBES)
-    assert direct["cost"]["query_bytes"] > 0
+    assert queried[0] > 0
+    assert direct["cost"]["hlo_bytes"] == moved[0]
     assert_same(direct, routed, "sequence")
 
 
