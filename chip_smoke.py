@@ -70,8 +70,11 @@ Run from the root of a checkout, with no arguments: ``python3 chip_smoke.py``.
    the scene, and the end-to-end map/reduce with its peak memory, for the
    scene and for a quarter of it (its first 64 tiles).
 5. The matching path (``core/matching.py``, ``launch/stitch.py``): holds
-   the matcher kernel (one launch for both of the reference's matcher
-   kernels) against its plain twin: the scene pair's shapes (2048 x 2048,
+   the matcher kernel (one kernel for both of the reference's matcher
+   kernels: one segment for its resident one, ``matcher.plan``'s segments
+   for its streaming one; below 131,072 rows the one-segment launch must
+   equal the planned one bit for bit) against its plain twin: the scene
+   pair's shapes (2048 x 2048,
    Hamming W 8, L2 D 128 and 64, 20% invalid rows and SURF-like 80%),
    duplicate rows across the segments' window edges and across neighbouring
    threads' rows, valid rows that all come first (a top-K list), an
@@ -82,12 +85,21 @@ Run from the root of a checkout, with no arguments: ``python3 chip_smoke.py``.
    (one segment, no merge), a 1,048,576-row Hamming stream and a 262,144 x
    128 L2 stream (sampled queries against the blocked oracle); two calls on
    two streams in flight at once; and, under ``torch.profiler``, exactly one
-   device kernel per call plus one memset where there are segments.  Then,
-   with the counters at 0, extracts sift/surf/brief/orb from two
-   overlapping 7681 x 7831 crops of one scene at a known offset, registers
-   each pair through the kernels and the plain route (equal matches,
-   offsets within 1e-3, orb within 1 px), and runs the 4-scene stitch and
-   its resume; times the matcher beside its twin, the ``torch_full`` path
+   device kernel per call plus one memset where there are segments.  Then
+   the measured dispatch (``kernels/dispatch.py``) on a fresh cache file
+   under ``build/``: every bucket the path reaches (the shapes of the
+   pair's own top-K lists) and six others, each in two contests (the
+   kernel's two plans, the measured default on the card, and the torch
+   paths), each measuring each candidate once with the kernel launched in
+   its probes, a second round from the file measuring nothing,
+   ``launch/obs.py --explain-dispatch`` listing every contest, and each
+   bucket's four times and both verdicts printed.  Then, with the counters
+   at 0 (the path must measure nothing), extracts sift/surf/brief/orb from two overlapping
+   7681 x 7831 crops of one scene at a known offset, registers each pair
+   through the measured route, the kernels' and the plain route (equal
+   matches, offsets within 1e-3, orb within 1 px), and runs the 4-scene
+   stitch and its resume; times the matcher beside its twin, its
+   one-segment launch, the ``torch_full`` path
    and its bound (by events, on the card under the profiler, and the host
    microseconds of a call), and each of the path's matcher launches on the
    inputs it was given, by events and on the card.
@@ -218,8 +230,8 @@ Run from the root of a checkout, with no arguments: ``python3 chip_smoke.py``.
    the extraction kernels ``served_launches_per_replay`` by bucket), a
    ``serve`` line of phase 3d's figures, a ``fleet`` line of phase 3e's,
    a ``mesh`` line of phase 3f's, an ``lm`` line of phase 3g's, a
-   ``train`` line of phase 3h's, an ``analysis`` line of phase 3i's, the
-   card's
+   ``train`` line of phase 3h's, an ``analysis`` line of phase 3i's, a
+   ``dispatch`` line of the dispatch cache's verdicts, the card's
    name and power
    limit, and last ``{"ok": true, "device": {...}}``.
 
@@ -289,6 +301,15 @@ SOURCES = {"harris": "harris.cu", "fast": "fastscore.cu", "blur": "blur.cu",
 EXTRACT_KERNELS = ("harris", "fast", "blur", "scalespace")
 MAIN_KERNELS = ("harris", "fast", "blur")     # the tile-512 path's kernels
 MATCH_KERNELS = ("matcher",)
+# the matching path's descriptors: (metric, words or dimensions)
+MATCH_WIDTHS = {"sift": ("l2", 128), "surf": ("l2", 64),
+                "brief": ("hamming", 8), "orb": ("hamming", 8)}
+# buckets the dispatch step also measures beside the path's, with the
+# kernel's plans and with the torch paths: (metric, width, queries, rows),
+# smaller and larger databases
+DISPATCH_EXTRA = (("hamming", 8, 128, 128), ("l2", 128, 128, 128),
+                  ("hamming", 8, 512, 512), ("l2", 128, 512, 512),
+                  ("hamming", 8, 2048, 16384), ("l2", 128, 2048, 16384))
 PAIR_OFFSET = (16, 1958)   # scene b's origin in scene a, full-size pair
 STITCH_FAST_THRESHOLD = 0.08   # launch/stitch.py's FAST threshold
 STITCH_ARGS = ["--scenes", "4", "--scene-size", "2048", "--overlap", "512",
@@ -452,6 +473,17 @@ def require(cond, what):
         raise SystemExit(f"chip_smoke: FAILED: {what}")
 
 
+def fresh_dispatch_cache(name):
+    """Point the matcher dispatch's cache (`kernels/dispatch.py`) at a new
+    file ``build/<name>`` of the checkout, and return its path: every
+    verdict of the run is measured on this card and stays in the checkout."""
+    path = ROOT / "build" / name
+    path.parent.mkdir(exist_ok=True)
+    path.unlink(missing_ok=True)
+    os.environ["DIFET_TORCH_DISPATCH_CACHE"] = str(path)
+    return path
+
+
 def cuda_ms(fn, reps=REPS, warmup=2):
     """Median device milliseconds of ``fn()`` by CUDA events."""
     import torch
@@ -613,7 +645,9 @@ def match_bound(work, metric):
 
 def check_matcher(torch, np, dev):
     """The matcher kernel against its plain twin on the card; returns the
-    largest |kernel - twin| of a best distance."""
+    largest |kernel - twin| of a best distance.  Below FULL_MAX_ROWS rows
+    the one-segment launch (``cuda_resident``) must equal the planned one
+    (``cuda_stream``) bit for bit, and the twin as the planned one does."""
     from repro_torch.kernels import matcher as M
     from repro_torch.kernels import ref
     rng = np.random.RandomState(1)
@@ -724,8 +758,13 @@ def check_matcher(torch, np, dev):
         singles += n_seg == 1
         tag = (f"{metric} W/D {width} {nq}x{nk} invalid {frac:.0%} {data}")
         r = M.match(q, db, v, metric=metric)
-        e1, n1 = hold(tag, metric, r, M.best2_scan(q, db, v, metric=metric),
-                      "kernel", bitwise=data == "int")
+        twin = M.best2_scan(q, db, v, metric=metric)
+        e1, n1 = hold(tag, metric, r, twin, "kernel", bitwise=data == "int")
+        one = M.launch(q, db, v, metric=metric, segments=1)
+        hold(tag, metric, one, r, "the one-segment launch (against the "
+             "planned one)", bitwise=True)
+        hold(tag, metric, one, twin, "the one-segment launch",
+             bitwise=data == "int")
         if frac == 1.0 or nk == 0:
             big = M.big_for(metric)
             require(bool((r[0] == big).all() & (r[1] == big).all()
@@ -742,13 +781,17 @@ def check_matcher(torch, np, dev):
                     f"{tag}: kernel differs from the unpacked-bit oracle")
         err = max(err, e1)
         log(f"  {tag:52s} {n_seg:4d} segment(s); equal to the twin; "
-            f"max|err| {e1:.3g}; idx differing at near-ties {n1}")
+            f"max|err| {e1:.3g}; idx differing at near-ties {n1}; one "
+            f"segment bitwise the plan")
     require(singles >= 4, "the single-segment form was not exercised")
 
     # two calls on two streams in flight at once: no shared state
     q, db = make("hamming", 2048, 8), make("hamming", 1 << 16, 8)
     v = valid(1 << 16, 0.2)
     want = M.best2_scan(q, db, v, metric="hamming")
+    hold("2048x65536x8", "hamming", M.launch(q, db, v, metric="hamming",
+                                             segments=1), want,
+         "the one-segment launch")
     streams = (torch.cuda.Stream(), torch.cuda.Stream())
     torch.cuda.synchronize()
     for _ in range(10):
@@ -761,7 +804,7 @@ def check_matcher(torch, np, dev):
             hold("two streams", "hamming", o, want, "kernel")
     log(f"  two streams, 10 rounds of two concurrent calls at 2048x65536x8 "
         f"({plan('hamming', 2048, 1 << 16, 8)} segments): every triple "
-        f"equal to the twin")
+        f"equal to the twin, as is the one-segment launch's")
 
     # one device kernel per call, and at most one memset
     for metric, width, nq, nk in (("hamming", 8, 2048, 2048),
@@ -953,6 +996,101 @@ def register_all(torch, matching, feats, algs, use_kernels):
             use_kernels=use_kernels)
     torch.cuda.synchronize()
     return out
+
+
+def dispatch_step(torch, ops, feats, algs):
+    """The measured matcher dispatch (`kernels/dispatch.py`) on the card, on
+    a fresh cache, for every bucket the matching path reaches and for
+    `DISPATCH_EXTRA`.  The path's buckets are the shapes of the scene
+    pair's own top-K descriptors ``feats``, in both directions of
+    ``match_pair``; the stitch's ORB lists fall in the pair's Hamming bucket,
+    which phase 3b's gate that the path measures nothing holds.  Every
+    bucket runs two contests: ``use_kernels`` None (on the card the
+    kernel's two plans; True asks the same) and False (the torch paths, the
+    plain route's).  Each must measure each of its candidates once, the
+    kernel's with the matcher launched in its probes; a second round with
+    the memo cleared must measure nothing (the disk answers);
+    ``launch/obs.py --explain-dispatch`` must exit 0 and list every key.
+    Prints each bucket's four times and both verdicts, and flags a torch
+    path faster than the kernel's verdict (printed, not refused); returns
+    {cache key: path}."""
+    from repro_torch.kernels import dispatch
+    path = fresh_dispatch_cache("chip_smoke_dispatch.json")
+    dispatch.clear_memory_cache()
+    card = torch.device("cuda", torch.cuda.current_device())
+    path_buckets = {}
+    for alg in algs:
+        metric = MATCH_WIDTHS[alg][0]
+        a, b = (f[alg]["top_desc"] for f in feats)
+        for q, db in ((a, b), (b, a)):
+            bucket = (metric, q.shape[1], q.shape[0], db.shape[0])
+            path_buckets.setdefault(
+                dispatch.bucket_key(metric, "cuda", *bucket[2:],
+                                    bucket[1]), bucket)
+    buckets = sorted(path_buckets.values(), key=str) + list(DISPATCH_EXTRA)
+    verdicts = {}
+    contests = [(use, *b) for b in buckets for use in (None, False)]
+    t0 = time.perf_counter()
+    for use, metric, width, nq, rows in contests:
+        cands = dispatch.candidate_paths(metric, "cuda", rows, width, use)
+        key = (dispatch.bucket_key(metric, "cuda", nq, rows, width) + "|"
+               + "".join(sorted(dispatch._ABBREV[c] for c in cands)))
+        m0, l0 = dispatch.measure_count, ops.launch_counts()["matcher"]
+        verdicts[key] = dispatch.choose_path(metric, nq, rows, width,
+                                             use_kernels=use, device=card)
+        torch.cuda.synchronize()
+        require(dispatch.measure_count - m0 == len(cands),
+                f"dispatch {key}: {dispatch.measure_count - m0} measures for "
+                f"{len(cands)} candidates")
+        require((ops.launch_counts()["matcher"] > l0) == (use is None),
+                f"dispatch {key}: the probes launched the matcher kernel "
+                f"{ops.launch_counts()['matcher'] - l0} times")
+    t_measure = time.perf_counter() - t0
+    table = dispatch.explain()
+    require(set(table) == set(verdicts),
+            f"the cache holds {sorted(table)}, not {sorted(verdicts)}")
+    log(f"matcher dispatch on the card ({len(path_buckets)} buckets of the "
+        f"matching path, then {len(DISPATCH_EXTRA)} others, each with the "
+        f"kernel's plans and with the torch paths; {len(verdicts)} contests "
+        f"measured in {t_measure:.2f} s; probes <= {dispatch.PROBE_NQ_CAP} x "
+        f"{dispatch.PROBE_NK_CAP} rows, median of {dispatch._PROBE_REPS} "
+        f"host-clock reps after a warm-up; {dispatch.DEFAULT_PATH} keeps a "
+        f"bucket within {dispatch.SWITCH_MARGIN}x):")
+    by_bucket = collections.defaultdict(dict)
+    for key, row in table.items():
+        by_bucket[key.rsplit("|", 1)[0]][
+            row["path"] in dispatch.CUDA_PATHS] = row
+    for bucket, rows in by_bucket.items():
+        kern, plain = rows[True], rows[False]
+        us = {**kern["us"], **plain["us"]}
+        ranked = sorted(us.items(), key=lambda kv: kv[1])
+        torch_first = min(plain["us"].values()) < kern["us"][kern["path"]]
+        log(f"  {bucket:28s} probe {kern['probe']}: "
+            + ", ".join(f"{c} {t:.1f} us" for c, t in ranked)
+            + f"; kernel verdict {kern['path']} ({kern['margin']:.2f}x), "
+            f"torch verdict {plain['path']} ({plain['margin']:.2f}x), the "
+            f"kernel's {min(plain['us'].values()) / us[kern['path']]:.2f}x "
+            "faster than the best torch path"
+            + ("  (a torch path beat the kernel)" if torch_first else ""))
+    # a new process's view: the memo cleared, the file answers
+    dispatch.clear_memory_cache()
+    m0 = dispatch.measure_count
+    for use, metric, width, nq, rows in contests:
+        dispatch.choose_path(metric, nq, rows, width, use_kernels=use,
+                             device=card)
+    require(dispatch.measure_count == m0,
+            "the second round measured again with the cache file in place")
+    cli = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.obs", "--explain-dispatch"],
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")), cwd=ROOT,
+        capture_output=True, text=True, timeout=120)
+    require(cli.returncode == 0 and str(path) in cli.stdout
+            and all(f"  {key}\n" in cli.stdout for key in verdicts),
+            f"--explain-dispatch (rc {cli.returncode}) does not list every "
+            f"bucket:\n{cli.stdout}\n{cli.stderr[-2000:]}")
+    log(f"  second round with the memo cleared: 0 measures; "
+        f"--explain-dispatch lists all {len(verdicts)} contests")
+    return verdicts
 
 
 def same_routes(alg, k, p, max_keypoints, batch=None):
@@ -3383,6 +3521,7 @@ def mesh_cards_main(n_cards: int) -> int:
               f"this host has {torch.cuda.device_count()}", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    fresh_dispatch_cache("chip_smoke_mesh_dispatch.json")
     import numpy as np
 
     from repro_torch.configs.difet_paper import DifetConfig
@@ -3875,17 +4014,29 @@ def main() -> int:
         f"{len(pair_bundles[0])} tiles each, set-up "
         f"{time.perf_counter() - t0:.1f} s")
     match_algs = ("sift", "surf", "brief", "orb")
-    # keep the inputs of every matcher call the path makes, so that phase 4
-    # times the path's matcher launches one by one
+    # the measured dispatch's verdicts for every bucket the path reaches (the
+    # shapes of the pair's own top-K lists), on this card, before the
+    # counters go to 0: the path then measures nothing
+    feats = [engine.extract_features_multi(b.tiles, b.headers, match_algs,
+                                           cfg, device=dev)
+             for b in pair_bundles]
+    verdicts = dispatch_step(torch, ops, feats, match_algs)
+    del feats
+    # keep the inputs and path of every kernel call the path makes, so that
+    # phase 4 times the path's matcher launches one by one
+    from repro_torch.kernels import dispatch
     match_calls = []
-    launch_match = ops._PATH_FNS["cuda_stream"]
+    path_fns = {name: ops._PATH_FNS[name] for name in dispatch.CUDA_PATHS}
 
-    def recorded(q, db, db_valid, *, metric):
-        match_calls.append((q, db, db_valid, metric))
-        return launch_match(q, db, db_valid, metric=metric)
+    def recorder(name, fn):
+        def recorded(q, db, db_valid, *, metric):
+            match_calls.append((q, db, db_valid, metric, name))
+            return fn(q, db, db_valid, metric=metric)
+        return recorded
 
-    ops._PATH_FNS["cuda_stream"] = recorded
+    ops._PATH_FNS.update({n: recorder(n, f) for n, f in path_fns.items()})
     torch.cuda.synchronize()
+    measured = dispatch.measure_count
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     feats = [engine.extract_features_multi(b.tiles, b.headers, match_algs,
@@ -3903,30 +4054,40 @@ def main() -> int:
     t_stitch = time.perf_counter() - t0
     torch.cuda.synchronize()
     match_launches = ops.launch_counts()
-    ops._PATH_FNS["cuda_stream"] = launch_match
-    log(f"  matching path launches {match_launches}")
+    ops._PATH_FNS.update(path_fns)
+    log(f"  matching path launches {match_launches}; kernel calls by path "
+        f"{dict(collections.Counter(c[4] for c in match_calls))}")
     require(len(match_calls) == match_launches["matcher"],
             f"{len(match_calls)} matcher calls recorded for "
             f"{match_launches['matcher']} launches")
+    require(dispatch.measure_count == measured,
+            "the matching path measured a bucket the dispatch step did not: "
+            f"{sorted(set(dispatch.explain()) - set(verdicts))}")
     for name in MATCH_KERNELS + ("fast", "blur"):
         require(match_launches[name] >= 1,
                 f"kernel {name} was not launched on the matching path")
 
     reg_p = register_all(torch, matching, feats, match_algs, False)
+    reg_c = register_all(torch, matching, feats, match_algs, True)
     t0 = time.perf_counter()
     register_all(torch, matching, feats, match_algs, None)
     t_register = time.perf_counter() - t0
     want_t = torch.tensor([-dy, -dx], dtype=torch.float32, device=dev)
     for alg in match_algs:
         (mk, ek), (mp, ep) = reg_k[alg], reg_p[alg]
-        require(torch.equal(mk.ok, mp.ok), f"{alg}: ok differs across routes")
+        # the measured route against the plain route and the kernels' route
+        for (mo, eo), other in ((reg_p[alg], "plain"),
+                                (reg_c[alg], "use_kernels=True")):
+            what = f"{alg}: measured route vs {other} route"
+            require(torch.equal(mk.ok, mo.ok), f"{what}: ok differs")
+            same = mk.idx_b == mo.idx_b
+            require(bool(same[mk.ok].all()), f"{what}: a matched idx_b "
+                    "differs")
+            if alg in ("brief", "orb"):
+                require(bool(same.all()), f"{what}: idx_b differs")
+            require(bool((ek.t - eo.t).abs().max() <= 1e-3),
+                    f"{what}: t differs beyond 1e-3")
         same_idx = mk.idx_b == mp.idx_b
-        require(bool(same_idx[mk.ok].all()),
-                f"{alg}: a matched idx_b differs across routes")
-        if alg in ("brief", "orb"):
-            require(bool(same_idx.all()), f"{alg}: idx_b differs across routes")
-        require(bool((ek.t - ep.t).abs().max() <= 1e-3),
-                f"{alg}: t differs across routes beyond 1e-3")
         require(bool(torch.isfinite(ek.t).all()), f"{alg}: t not finite")
         e = float((ek.t - want_t).abs().max())
         log(f"  {alg:5s} matches {int(mk.ok.sum()):5d}, inliers "
@@ -3934,7 +4095,8 @@ def main() -> int:
             f"{float(ek.t[1]):+.3f}), |t - truth| {e:.3f} px, rms "
             f"{float(ek.rms):.3f}; plain route: equal ok, idx_b equal at "
             f"{int(same_idx.sum())}/{same_idx.numel()}, |dt| "
-            f"{float((ek.t - ep.t).abs().max()):.2g}")
+            f"{float((ek.t - ep.t).abs().max()):.2g}; use_kernels=True: "
+            f"|dt| {float((ek.t - reg_c[alg][1].t).abs().max()):.2g}")
         if alg == "orb":
             require(e <= 1.0 and int(ek.n_inliers) >= 8,
                     "orb must recover the offset within 1 px with >= 8 "
@@ -3954,7 +4116,7 @@ def main() -> int:
     log(f"  wall: extraction of both crops (4 algorithms) {t_extract:.3f} s; "
         f"register_pair x4 algorithms {t_register:.3f} s "
         f"(first call {t_register_first:.3f} s)")
-    del feats, reg_k, reg_p, pair_bundles
+    del feats, reg_k, reg_p, reg_c, pair_bundles
 
     phase_done("3b (matching and stitch)")
 
@@ -4423,6 +4585,8 @@ def main() -> int:
                    bound_ms=b_ms, bound_by=b_by, torch_full_ms=full_ms)
         extra = ""
         if not big:
+            row["resident_ms"] = cuda_ms(lambda: M.launch(
+                q, db, v, metric=metric, segments=1))
             row["device_us"] = device_us_per_call(
                 torch, lambda: M.match(q, db, v, metric=metric), 20)
             row["host_us"] = host_us_per_call(
@@ -4430,7 +4594,8 @@ def main() -> int:
             row["host_us_ops"] = host_us_per_call(
                 torch, lambda: ops.match_best2(q, db, v, metric=metric,
                                                path="cuda_stream"))
-            extra = (f"; device time per call under the profiler "
+            extra = (f"; one segment (cuda_resident) {row['resident_ms']:.4f} "
+                     f"ms; device time per call under the profiler "
                      f"{row['device_us']:.1f} us; host per call "
                      f"{row['host_us']:.1f} us (match), "
                      f"{row['host_us_ops']:.1f} us (ops.match_best2)")
@@ -4447,25 +4612,29 @@ def main() -> int:
             f"{HBM_BYTES_PER_S:.3g} B/s)  launches on the matching path "
             f"{match_launches['matcher']}" + extra)
         del q, db, v
-    rows["matcher"] = dict(mtimes[("hamming", 2048, 8)], library_ms=None)
+    rows["matcher"] = dict({k: v for k, v in mtimes[("hamming", 2048,
+                                                     8)].items()
+                            if k != "resident_ms"}, library_ms=None)
     # the matching path's own launches, each timed on the inputs it was given
     # (L2 for sift and surf, Hamming for brief and orb and the stitch) with
     # its own bound from its valid rows, by events and under the profiler
     match_rows = {}
-    for q, db, v, metric in match_calls:
-        key = (metric, q.shape[0], db.shape[0], q.shape[1], int(v.sum()))
+    for q, db, v, metric, path in match_calls:
+        key = (metric, q.shape[0], db.shape[0], q.shape[1], int(v.sum()),
+               path)
         if key not in match_rows:
             b_ms, _ = match_bound(match_work(key[1], key[4], key[2], key[3],
                                              metric), metric)
+            fn = ops._PATH_FNS[path]
             match_rows[key] = dict(
-                ms=cuda_ms(lambda: M.match(q, db, v, metric=metric)),
+                ms=cuda_ms(lambda: fn(q, db, v, metric=metric)),
                 device_ms=device_us_per_call(
-                    torch, lambda: M.match(q, db, v, metric=metric), 20) / 1e3,
+                    torch, lambda: fn(q, db, v, metric=metric), 20) / 1e3,
                 bound_ms=b_ms, launches=0)
         match_rows[key]["launches"] += 1
-    for (metric, nq, nk, width, nv), row in match_rows.items():
+    for (metric, nq, nk, width, nv, path), row in match_rows.items():
         log(f"  matcher on the matching path: {metric:7s} {nq}x{nk}x{width} "
-            f"({nv} valid rows) kernel {row['ms']:.4f} ms "
+            f"({nv} valid rows; {path}) kernel {row['ms']:.4f} ms "
             f"[{row['device_ms']:.4f}]  bound {row['bound_ms']:.4f} ms  "
             f"launches {row['launches']}")
     require(sum(r["launches"] for r in match_rows.values())
@@ -4570,6 +4739,8 @@ def main() -> int:
     log("lm " + json.dumps(lm_figures))
     log("train " + json.dumps(train_figures))
     log("analysis " + json.dumps(analysis_figures))
+    from repro_torch.kernels import dispatch
+    log("dispatch " + json.dumps(dispatch.explain()))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)

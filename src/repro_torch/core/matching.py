@@ -92,8 +92,10 @@ def match_pair(desc_a, valid_a, desc_b, valid_b, ratio: float = 0.8, *,
     """Mutual-NN + Lowe ratio matches from set a into set b.
 
     ``mode="exact"`` scores every database row through
-    ``kernels/ops.match_best2`` (``use_kernels`` as there: None or True
-    the CUDA kernel on the card, False the torch paths).  ``mode="approx"`` goes
+    ``kernels/ops.match_best2`` (``use_kernels`` as there: None the path
+    measured fastest per shape bucket among the device's own (the CUDA
+    kernel's two plans on the card, the torch paths on the CPU), True among
+    the kernel's two plans, False among the torch paths).  ``mode="approx"`` goes
     through the indexes of ``kernels/index.py`` (LSH for packed bits,
     k-means lists for L2) with an exact re-rank of the candidates;
     ``probes`` trades recall for work, and ``index_a``/``index_b`` take

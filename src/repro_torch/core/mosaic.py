@@ -63,7 +63,9 @@ def make_pair_solver(metric: Optional[str], ratio: float, tol: float,
     """Batched registration: every argument has a leading pair axis P; the
     solver registers pair after pair on ``device`` and returns stacked
     ``t``, ``n_inliers``, ``n_matches`` and ``rms`` as tensors.  ``draws``
-    [P, iters] are each pair's RANSAC numbers."""
+    [P, iters] are each pair's RANSAC numbers.  ``use_kernels`` as in
+    ``kernels/ops.match_best2``: None the matcher path measured fastest per
+    shape bucket."""
     dev = resolve_device(device)
 
     def solve(ya, xa, da, va, yb, xb, db, vb, draws):
@@ -103,7 +105,9 @@ class MatchPhase(ManifestJob):
     each chunk's pairs are split over the mesh's devices, each entry
     registering its own on its card and stream; a pair's result does not
     depend on the entry that registered it.  A mesh of one entry registers
-    on its device, as ``device`` does."""
+    on its device, as ``device`` does.  ``use_kernels`` None (the default)
+    takes the matcher path measured fastest per shape bucket
+    (`kernels/dispatch.py`)."""
 
     def __init__(self, store: BundleStore, pairs: Sequence[Tuple[str, str]],
                  algorithm: str, *, metric: Optional[str] = None,

@@ -13,7 +13,9 @@ several segments the last block of a query tile to finish merges the
 tile's partial triples.
 
 On a CUDA tensor ``match`` launches the kernel; on a CPU tensor it runs its
-plain twin ``best2_scan``.  ``best2_full`` and ``best2_stream`` are the plain
+plain twin ``best2_scan``.  ``launch(..., segments=1)`` pins one segment, the
+counterpart of ``match_kernel`` (``ops.match_best2``'s ``cuda_resident``);
+``plan``'s segments are that of ``stream_kernel`` (``cuda_stream``).  ``best2_full`` and ``best2_stream`` are the plain
 routes ``ops.match_best2`` takes as ``torch_full`` and ``torch_stream``.
 
 Distances: Hamming over bit-packed words (int32 in the port, the
@@ -274,11 +276,16 @@ def slots(index: int, metric: str, width: int) -> int:
     return sms * per_sm.value
 
 
-def launch(q, db, db_valid, *, metric: str):
+def launch(q, db, db_valid, *, metric: str, segments: int = None):
     """The kernel on inputs that ``check_match_inputs`` accepts (CPU tensors:
     its twin ``best2_scan``): one launch, one output allocation, and with
     several segments one scratch allocation and one memset of its tickets.
+    ``segments`` pins the segment count (1: each query tile's block scans
+    the whole database and writes the final triple, the reference's
+    resident kernel); None takes ``plan``'s.
     -> (best [Q], second [Q], idx [Q] int32), views of one [3, Q] tensor."""
+    if segments is not None and segments < 1:
+        raise ValueError(f"launch: segments must be 1 or more, got {segments}")
     if not q.is_cuda:
         return best2_scan(q, db, db_valid, metric=metric)
     nq, width = q.shape
@@ -286,7 +293,8 @@ def launch(q, db, db_valid, *, metric: str):
     dev = q.device
     out = torch.empty((3, nq), dtype=torch.int32, device=dev)
     if nq:
-        n_seg = plan(nq, nk, slots(dev.index, metric, width))
+        n_seg = plan(nq, nk, slots(dev.index, metric, width)) \
+            if segments is None else segments
         scratch = 0
         if n_seg > 1:
             part = torch.empty(-(-nq // QBLOCK) + 3 * n_seg * nq,

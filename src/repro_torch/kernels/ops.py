@@ -11,11 +11,13 @@ and of the queries to ``QBLOCK`` has no counterpart either.
 """
 from __future__ import annotations
 
+import functools
 import time
 
 import torch
 
 from repro_torch.kernels import blur as _blur
+from repro_torch.kernels import dispatch as _dispatch
 from repro_torch.kernels import fastscore as _fast
 from repro_torch.kernels import harris as _harris
 from repro_torch.kernels import matcher as _matcher
@@ -110,34 +112,39 @@ def reference_fuses_octave(h: int, w: int, scales_per_octave: int,
 
 
 # --- descriptor matching -------------------------------------------------------
-# The reference measures its paths once per shape bucket and may pick a jnp
-# path on any backend; it also gates its resident kernel on a 12 MiB TPU
-# VMEM budget (matcher_fits_vmem).  Both pick a path, not a result, so
-# neither is copied (unlike the octave-fusion rule above, which decides
-# which maps the reference computes).  Here the card always runs the kernel,
-# which sizes its own launch (``matcher.plan``), and the plain route is
-# taken only when asked for.
+# As in the reference, a call with no pinned path asks the measured dispatch
+# (`kernels/dispatch.py`): the first call of a (metric, backend, shape
+# bucket) times every eligible path and keeps the fastest.  On the card the
+# contest holds the kernel's two plans, and a torch formulation runs there
+# only when the caller asks for it: ``cuda_resident`` launches the kernel
+# with one segment (each query tile's block scans the whole database, the
+# reference's resident kernel), ``cuda_stream`` with ``matcher.plan``'s
+# segments (its streaming kernel), which keeps a bucket unless one segment
+# is ``dispatch.SWITCH_MARGIN`` times faster.  The reference's 12 MiB TPU
+# VMEM rule for its resident kernel (matcher_fits_vmem) is not copied: it
+# picks a path, not a result.
 MATCH_QBLOCK = _matcher.QBLOCK
-FULL_MAX_ROWS = 1 << 17          # torch_full's [Q, K] block up to this K
-# ``cuda_resident`` names the same kernel as ``cuda_stream``: one launch
-# covers both of the reference's kernels
-MATCH_PATHS = ("torch_full", "torch_stream", "cuda_resident", "cuda_stream")
+FULL_MAX_ROWS = _dispatch.FULL_MAX_ROWS
+MATCH_PATHS = _dispatch.MATCH_PATHS
+shape_bucket = _dispatch.shape_bucket
 
 
-def match_path(nk: int, *, use_kernels: bool = None,
-               backend: str = None) -> str:
-    """The path a ``match_best2`` call over ``nk`` database rows takes, one
-    of ``MATCH_PATHS``.  ``backend`` is the tensors' device type (default:
-    ``cuda`` where the card is present).  On ``cuda``, ``use_kernels`` None
-    or True takes the kernel (``cuda_stream``); ``use_kernels=False``, or
-    None on the CPU, takes the plain route: ``torch_full`` up to
-    ``FULL_MAX_ROWS`` rows, ``torch_stream`` above.  ``use_kernels=True``
-    on the CPU takes ``cuda_stream``, whose wrapper runs its twin there."""
-    if backend is None:
-        backend = "cuda" if torch.cuda.is_available() else "cpu"
-    if use_kernels or (use_kernels is None and backend == "cuda"):
-        return "cuda_stream"
-    return "torch_full" if nk <= FULL_MAX_ROWS else "torch_stream"
+def match_path(nq: int, nk: int, d: int, *, metric: str = "l2",
+               use_kernels: bool = None, backend: str = None,
+               device=None) -> str:
+    """Resolve which implementation a ``match_best2`` call of this shape
+    takes, one of ``MATCH_PATHS`` (`kernels/dispatch.py::choose_path`).
+
+    ``use_kernels=True`` is the measured contest of the kernel's two plans
+    (on the CPU: ``cuda_stream``, whose wrapper runs its twin there);
+    ``use_kernels=False`` that of the torch formulations; ``None`` (the
+    default) lets the per-(metric, backend, shape bucket) microbenchmark
+    decide among the backend's own: the kernel's plans on the card, the
+    torch formulations on the CPU.  ``backend`` is the tensors' device type
+    (default: ``device``'s, else ``cuda`` where the card is present) and
+    ``device`` the one the probes run on."""
+    return _dispatch.choose_path(metric, nq, nk, d, backend=backend,
+                                 use_kernels=use_kernels, device=device)
 
 
 # ``match_best2`` makes the dtypes and contiguity that ``matcher.match``
@@ -145,20 +152,9 @@ def match_path(nk: int, *, use_kernels: bool = None,
 _PATH_FNS = {
     "torch_full": _matcher.best2_full,
     "torch_stream": _matcher.best2_stream,
-    "cuda_resident": _matcher.launch,
+    "cuda_resident": functools.partial(_matcher.launch, segments=1),
     "cuda_stream": _matcher.launch,
 }
-
-
-def _pow2(n: int) -> int:
-    return 1 << max(0, (int(n) - 1).bit_length())
-
-
-def shape_bucket(nq: int, nk: int, d: int):
-    """(nq, nk) rounded up to powers of two, the width exact: the key a
-    profiled ``match_best2`` call is stamped under (a copy of the
-    reference's ``kernels/dispatch.py::shape_bucket``)."""
-    return _pow2(max(nq, 1)), _pow2(max(nk, 1)), int(d)
 
 
 def match_best2(queries: torch.Tensor, db: torch.Tensor,
@@ -171,11 +167,14 @@ def match_best2(queries: torch.Tensor, db: torch.Tensor,
     (``descriptors.pack_bits``) and gives exact int32 distances;
     ``metric="l2"`` needs floats (cast to fp32) and gives squared L2.
     ``path`` pins one of ``MATCH_PATHS``; otherwise ``match_path`` picks
-    one from the database size and ``use_kernels``.  On CUDA tensors a
-    CUDA path launches its kernel or raises; a torch path runs only when
-    asked for (``use_kernels=False`` or ``path``).  Every path gives the
-    same distances, masking and smallest-index ties (Hamming bit for
-    bit).
+    one, measured once per shape bucket (``use_kernels`` None: the
+    backend's own, the kernel's two plans on the card and the torch paths
+    on the CPU; True: the kernel's two plans; False: the torch paths).
+    On CUDA tensors a CUDA path launches its kernel or raises.  Every path
+    gives the same distances, masking and smallest-index ties, so the choice
+    is a path, never a result: Hamming bit for bit on every path, L2 bit for
+    bit between the kernel's two plans and within rtol 1e-5 / atol 1e-4
+    between a torch path and the kernel.
 
     With the kernel profiler enabled (`obs/profile.py`), a call waits for
     its result and stamps its wall time under
@@ -198,13 +197,14 @@ def match_best2(queries: torch.Tensor, db: torch.Tensor,
           or db_valid.get_device() != db.get_device()):
         db_valid = db_valid.to(device=db.device, dtype=torch.int32)
     db_valid = db_valid.contiguous()
-    if path is None:
-        path = match_path(nk, use_kernels=use_kernels,
-                          backend=queries.device.type)
-    elif path not in MATCH_PATHS:
+    if path is not None and path not in MATCH_PATHS:
         raise ValueError(f"unknown path {path!r} (want one of {MATCH_PATHS})")
     queries, db = queries.contiguous(), db.contiguous()
     _matcher.check_shapes(queries, db, db_valid, metric, "match_best2")
+    if path is None:
+        path = match_path(queries.shape[0], nk, queries.shape[1],
+                          metric=metric, use_kernels=use_kernels,
+                          device=queries.device)
     prof = _obs_profile.profiler()
     if not prof.enabled:
         return _PATH_FNS[path](queries, db, db_valid, metric=metric)

@@ -7,13 +7,16 @@ the two per-run artifacts (`obs/export.py`).  Port of
 
     PYTHONPATH=src python -m repro_torch.launch.obs --requests 64 --report \\
         --chrome-trace trace.json --metrics metrics.json
+    PYTHONPATH=src python -m repro_torch.launch.obs --explain-dispatch
     PYTHONPATH=src python -m repro_torch.launch.obs --smoke          # CI gate
     PYTHONPATH=src python -m repro_torch.launch.obs --fleet --smoke  # CI gate
 
 ``--report`` prints the per-layer latency-breakdown table (queue /
 compile / kernel / disk-tier, p50/p95/p99 from the bounded histograms);
 ``--chrome-trace`` writes the span timeline for ``chrome://tracing`` /
-Perfetto; ``--smoke`` runs a short traced replay with a mid-trace
+Perfetto; ``--explain-dispatch`` decodes the matcher dispatch cache
+(winner, margin, loser timings per shape bucket) without running
+anything; ``--smoke`` runs a short traced replay with a mid-trace
 replica kill and exits non-zero unless the exported trace passes the
 schema validator with spans from every serving layer, the re-admitted
 requests' spans share their original trace id, and the flight recorder
@@ -43,6 +46,30 @@ from repro_torch.obs import trace as obs_trace
 
 # every serving layer a traced fleet replay must produce spans from
 REQUIRED_LAYERS = ("router", "scheduler", "batch", "kernel", "cache")
+
+
+def explain_dispatch() -> int:
+    """Render the matcher dispatch cache (`kernels/dispatch.py::explain`)
+    as a table: per shape bucket, the winning path, its margin over the
+    runner-up, and every candidate's measured microseconds."""
+    from repro_torch.kernels import dispatch
+
+    rows = dispatch.explain()
+    print(f"dispatch cache: {dispatch.cache_path()}")
+    if not rows:
+        print("  (empty — no buckets measured yet; run a matcher "
+              "workload or chip_smoke.py first)")
+        return 0
+    for key, row in rows.items():
+        margin = row.get("margin")
+        margin_s = f"{margin:.2f}x" if margin else "only candidate"
+        print(f"  {key}")
+        print(f"    winner: {row['path']} ({margin_s} over runner-up)  "
+              f"backend={row['backend']} probe={row['probe']}")
+        for cand, us in sorted(row["us"].items(), key=lambda kv: kv[1]):
+            mark = "->" if cand == row["path"] else "  "
+            print(f"     {mark} {cand:<16} {us:>10.1f} us")
+    return 0
 
 
 def observed_replay(args, dump_dir: str):
@@ -320,6 +347,8 @@ def main(argv=None):
                          "(optional)")
     ap.add_argument("--report", action="store_true",
                     help="print the per-layer latency-breakdown table")
+    ap.add_argument("--explain-dispatch", action="store_true",
+                    help="decode the matcher dispatch cache and exit")
     ap.add_argument("--smoke", action="store_true",
                     help="CI smoke mode: assertions + non-zero exit")
     ap.add_argument("--fleet", action="store_true",
@@ -327,6 +356,8 @@ def main(argv=None):
                          "(--proc replicas, stitched trace, SLO burn)")
     args = ap.parse_args(argv)
 
+    if args.explain_dispatch:
+        raise SystemExit(explain_dispatch())
     if args.fleet:
         if not args.smoke:
             ap.error("--fleet requires --smoke (telemetry-plane CI gate)")

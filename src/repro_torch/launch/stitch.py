@@ -120,7 +120,8 @@ def main(argv=None, *, device=None):
                     help="register every scene pair, not just neighbours")
     ap.add_argument("--use-kernels", action=argparse.BooleanOptionalAction,
                     default=True, help="CUDA kernels (their plain twins on "
-                    "the CPU); --no-use-kernels takes the plain route")
+                    "the CPU; the matcher's plan measured per shape "
+                    "bucket); --no-use-kernels takes the plain route")
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' runs without the card")
     ap.add_argument("--mesh", default="host", choices=("host", "none"),

@@ -6,8 +6,9 @@
 * ``trace.py`` — structured span tracing into a bounded flight recorder,
   no-op by default (a copy of the reference's);
 * ``profile.py`` — per-call and per-program stamps
-  (`kernels/ops.py::match_best2` per shape bucket, the service's graph
-  captures), plus ``torch.profiler`` capture;
+  (`kernels/ops.py::match_best2` per dispatch bucket, the matcher
+  dispatch's probes, the service's graph captures), plus
+  ``torch.profiler`` capture;
 * ``export.py`` — Chrome-trace JSON + flat metrics JSON exporters, the
   Prometheus text renderer, the schema validator the smokes gate on, and
   the latency-breakdown report.
@@ -24,8 +25,8 @@ The fleet telemetry plane carries all of it across process boundaries:
   recorder.
 
 Drivers: ``python -m repro_torch.launch.obs`` (traced fleet run →
-artifacts → report; ``--fleet --smoke`` gates the cross-process
-telemetry plane).
+artifacts → report; ``--explain-dispatch`` decodes the dispatch cache;
+``--fleet --smoke`` gates the cross-process telemetry plane).
 """
 from repro_torch.obs.metrics import (Counter, Gauge, Histogram,  # noqa: F401
                                      MetricsRegistry, registry, set_registry)

@@ -14,8 +14,10 @@ Two machine-readable artifacts per observed run:
   separate rows.
 * **Metrics JSON**: the flat :class:`obs/metrics.py::MetricsRegistry`
   snapshot + the kernel profiler rows, so a run's figures carry the
-  provenance (cache hit mix, layer latency quantiles, per-program
-  capture seconds) of the run that produced them.
+  provenance (the matcher's dispatch decisions: its ``dispatch:`` probe
+  rows and ``difet.kernel.dispatch_measures``; cache hit mix, layer
+  latency quantiles, per-program capture seconds) of the run that
+  produced them.
 
 :func:`validate_chrome_trace` is the CI smoke gate's schema check:
 events well-formed, all spans closed (``dur >= 0``), timestamps

@@ -31,7 +31,7 @@ from repro.kernels import ref as jref
 from repro_torch import convert
 from repro_torch.core import matching
 from repro_torch.core import mosaic
-from repro_torch.kernels import index, matcher, ops, ref
+from repro_torch.kernels import dispatch, index, matcher, ops, ref
 
 if os.environ.get("PYTEST_XDIST_WORKER"):
     torch.set_num_threads(1)
@@ -163,28 +163,50 @@ def test_all_invalid_database(metric):
     assert not bool(m.ok.any())
 
 
-def test_candidate_paths_by_backend():
-    """On the card auto dispatch always takes the kernel; the plain route
-    runs only when asked for, or on the CPU, sized by FULL_MAX_ROWS.  No
-    path is measured, so nothing depends on the shape beyond K."""
+def test_candidate_paths_by_backend(tmp_path, monkeypatch):
+    """No pinned path: the dispatch measures a bucket's eligible paths once
+    and keeps the fastest (the torch paths on the CPU, the kernel's two
+    plans on the card, the torch paths there only with use_kernels=False);
+    FULL_MAX_ROWS drops the materializing ones, and a lone candidate is
+    taken unmeasured.
+    ``cuda_resident`` is the one-segment launch, ``cuda_stream`` the
+    planned one."""
+    monkeypatch.setenv(dispatch.CACHE_ENV, str(tmp_path / "d.json"))
+    dispatch.clear_memory_cache()
     p = ops.match_path
     big = ops.FULL_MAX_ROWS + 1
-    for use in (None, True):
-        assert p(100, use_kernels=use, backend="cuda") == "cuda_stream"
-        assert p(big, use_kernels=use, backend="cuda") == "cuda_stream"
+    cands = dispatch.candidate_paths
+    assert cands("l2", "cuda", 100, 64) == dispatch.CUDA_PATHS
+    assert cands("l2", "cuda", big, 64) == ("cuda_stream",)
+    assert cands("l2", "cuda", 100, 64, True) == dispatch.CUDA_PATHS
     for backend in ("cuda", "cpu"):
-        assert p(100, use_kernels=False, backend=backend) == "torch_full"
-        assert p(ops.FULL_MAX_ROWS, use_kernels=False,
-                 backend=backend) == "torch_full"
-        assert p(big, use_kernels=False, backend=backend) == "torch_stream"
-    assert p(100, backend="cpu") == "torch_full"
-    assert p(big, backend="cpu") == "torch_stream"
-    assert p(100, use_kernels=True, backend="cpu") == "cuda_stream"
+        assert cands("l2", backend, ops.FULL_MAX_ROWS, 64,
+                     False) == dispatch.TORCH_PATHS
+        assert cands("l2", backend, big, 64, False) == ("torch_stream",)
+    assert cands("l2", "cpu", 100, 64) == dispatch.TORCH_PATHS
+    before = dispatch.measure_count
+    try:
+        assert p(64, big, 64, backend="cpu") == "torch_stream"
+        assert p(64, big, 64, use_kernels=True,
+                 backend="cuda") == "cuda_stream"
+        assert p(64, 100, 64, use_kernels=True,
+                 backend="cpu") == "cuda_stream"
+        assert dispatch.measure_count == before
+        got = p(64, 100, 64, backend="cpu")
+        assert got in dispatch.TORCH_PATHS
+        assert dispatch.measure_count == before + 2
+        # the same bucket and candidates: the verdict, unmeasured
+        assert p(40, 70, 64, use_kernels=False, backend="cpu") == got
+        assert dispatch.measure_count == before + 2
+    finally:
+        dispatch.clear_memory_cache()
     assert set(ops.MATCH_PATHS) == {"torch_full", "torch_stream",
                                     "cuda_resident", "cuda_stream"}
-    # both of the reference's kernels map onto the one launch
-    assert ops._PATH_FNS["cuda_resident"] is ops._PATH_FNS["cuda_stream"] \
-        is matcher.launch
+    # the reference's two kernels are the kernel's two launch plans
+    assert ops._PATH_FNS["cuda_stream"] is matcher.launch
+    resident = ops._PATH_FNS["cuda_resident"]
+    assert resident.func is matcher.launch
+    assert resident.keywords == {"segments": 1}
 
 
 def segment_rows(nk, n_seg, g):

@@ -23,7 +23,7 @@ from repro_torch.core.bundle import BundleStore, bundle_scenes
 from repro_torch.core.job import DifetJob, LeaseBoard
 from repro_torch.configs.difet_paper import DifetConfig
 from repro_torch.data.landsat import synthetic_scene
-from repro_torch.kernels import ops
+from repro_torch.kernels import dispatch, ops
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import profile as obs_profile
 from repro_torch.obs import trace as obs_trace
@@ -326,9 +326,15 @@ def test_warmup_records_program_builds(kernel_profiler, fresh_registry):
 
 
 @pytest.mark.parametrize("metric", ["l2", "hamming"])
-def test_match_best2_profiles_by_shape_bucket(kernel_profiler, metric):
+def test_match_best2_profiles_by_shape_bucket(kernel_profiler, metric,
+                                              tmp_path, monkeypatch):
     """With the profiler on, a call is stamped under its path and
-    power-of-two shape bucket, and returns the unprofiled bits."""
+    power-of-two shape bucket, and returns the unprofiled bits.  Its bucket's
+    first call measures the torch paths: each probe is stamped under
+    ``dispatch:`` once, and its four timed calls (warm-up and three reps)
+    under ``match:`` beside the call itself."""
+    monkeypatch.setenv(dispatch.CACHE_ENV, str(tmp_path / "d.json"))
+    dispatch.clear_memory_cache()
     rng = np.random.RandomState(0)
     if metric == "l2":
         q = torch.from_numpy(rng.randn(16, 32).astype(np.float32))
@@ -338,13 +344,24 @@ def test_match_best2_profiles_by_shape_bucket(kernel_profiler, metric):
                                          dtype=np.int64).astype(np.int32))
         db = torch.from_numpy(rng.randint(-2**31, 2**31 - 1, (200, 8),
                                           dtype=np.int64).astype(np.int32))
-    out = ops.match_best2(q, db, metric=metric, use_kernels=False)
-    rows = kernel_profiler.snapshot()
-    assert list(rows) == [f"match:{metric}:torch_full:q16k256d"
-                          f"{q.shape[1]}"]
-    assert rows[list(rows)[0]]["calls"] == 1
-    obs_profile.set_profiler(obs_profile._NoopProfiler())
-    base = ops.match_best2(q, db, metric=metric, use_kernels=False)
+    try:
+        out = ops.match_best2(q, db, metric=metric, use_kernels=False)
+        rows = kernel_profiler.snapshot()
+        bucket = f"q16k256d{q.shape[1]}"
+        [(key, entry)] = dispatch.explain().items()
+        assert key == f"{metric}|cpu|q16|k256|d{q.shape[1]}|tfts"
+        path = entry["path"]
+        assert sorted(rows) == sorted(
+            [f"dispatch:{metric}:{c}:{bucket}" for c in dispatch.TORCH_PATHS]
+            + [f"match:{metric}:{c}:{bucket}" for c in dispatch.TORCH_PATHS])
+        for c in dispatch.TORCH_PATHS:
+            assert rows[f"dispatch:{metric}:{c}:{bucket}"]["calls"] == 1
+            assert rows[f"match:{metric}:{c}:{bucket}"]["calls"] == \
+                4 + (c == path)
+        obs_profile.set_profiler(obs_profile._NoopProfiler())
+        base = ops.match_best2(q, db, metric=metric, use_kernels=False)
+    finally:
+        dispatch.clear_memory_cache()
     for a, b in zip(base, out):
         assert torch.equal(a, b)
     assert ops.shape_bucket(0, 1025, 7) == (1, 2048, 7)
