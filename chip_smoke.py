@@ -4657,11 +4657,10 @@ def main() -> int:
             lambda fn=fn: fn(x, cfg, True), reps=3, warmup=1)
         resp[fn] = fn(x, cfg, True)
     for alg in PAPER_ALGORITHMS:
-        spec = engine.ALGORITHMS[alg]
         stage[f"select+describe {alg}"] = cuda_ms(
-            lambda spec=spec: engine._select_and_describe(
-                spec, cfg, x, headers, resp[spec.response], True), reps=3,
-            warmup=1)
+            lambda alg=alg: engine._select_and_describe(
+                alg, cfg, x, headers, resp[engine.ALGORITHMS[alg].response],
+                True), reps=3, warmup=1)
     del resp
     log("breakdown_ms_per_scene " + json.dumps(
         {k: round(v, 4) for k, v in stage.items()}))

@@ -13,6 +13,15 @@ bundle at once (the reference's ``vmap`` written out).  With
 go through the CUDA kernels (on a CPU tensor, through their plain twins),
 mirroring ``use_pallas``; ``use_kernels=False`` is the reference's plain
 route.
+
+Spans (`obs/trace.py::span`, layer ``engine``; no-ops unless the flight
+recorder or a ``torch.profiler`` is on): ``difet.extract`` around an entry
+point's (or a mesh run's) map and reduces, ``difet.map``,
+``difet.response.<fn>`` once per distinct response (``fn`` one of harris,
+shi_tomasi, fast, sift, surf: BRIEF and ORB reuse FAST's),
+``difet.select.<alg>`` (mask, count, NMS, top-K, scene coordinates),
+``difet.describe.<alg>`` and ``difet.reduce.<alg>`` (attribute ``stage``:
+``one``, ``requests``, ``local`` or ``merge``).
 """
 from __future__ import annotations
 
@@ -25,6 +34,7 @@ from repro_torch.configs.difet_paper import DifetConfig
 from repro_torch.core import descriptors as DS
 from repro_torch.core import detectors as D
 from repro_torch.core import nms
+from repro_torch.obs.trace import span
 
 
 class AlgorithmSpec(NamedTuple):
@@ -93,6 +103,11 @@ ALGORITHMS: Dict[str, AlgorithmSpec] = {
 }
 
 
+# the span name of each response function
+_RESPONSE_NAMES = {_harris_resp: "harris", _shi_resp: "shi_tomasi",
+                  _fast_resp: "fast", _sift_resp: "sift", _surf_resp: "surf"}
+
+
 def normalize_algorithms(spec) -> tuple:
     """Canonicalize an algorithm selection: accepts a comma-separated string
     or a sequence of names, strips whitespace, drops duplicates (first
@@ -115,26 +130,31 @@ def normalize_algorithms(spec) -> tuple:
     return tuple(out)
 
 
-def _select_and_describe(spec: AlgorithmSpec, cfg: DifetConfig, tiles,
-                         headers, resp, use_kernels: bool):
-    """NMS → capacity-K selection → describe, given a precomputed response
-    map [N,H,W], so algorithms sharing a response compute it once."""
-    thr = float(np.float32(spec.threshold(cfg)))
-    not_pad = headers[:, 5] == 0
-    mask = nms.interior_mask(resp.shape[-2:], cfg.halo, headers[:, 3],
-                             headers[:, 4]) & not_pad[:, None, None]
-    count = nms.count_above(resp, thr, mask)
-    resp_nms = nms.nms3x3(resp)
-    ys, xs, scores, valid = nms.topk_keypoints(
-        resp_nms, cfg.max_keypoints_per_tile, thr, mask)
-    out = {"count": count, "scores": scores, "valid": valid}
-    # global scene coordinates (interior-relative)
-    out["ys"] = headers[:, 1:2] * cfg.tile + (ys - cfg.halo)
-    out["xs"] = headers[:, 2:3] * cfg.tile + (xs - cfg.halo)
+def _select_and_describe(alg: str, cfg: DifetConfig, tiles, headers, resp,
+                         use_kernels: bool):
+    """NMS → capacity-K selection → describe for the algorithm ``alg``,
+    given a precomputed response map [N,H,W], so algorithms sharing a
+    response compute it once."""
+    spec = ALGORITHMS[alg]
+    attrs = dict(tiles=tiles.shape[0], k=cfg.max_keypoints_per_tile)
+    with span(f"difet.select.{alg}", "engine", **attrs):
+        thr = float(np.float32(spec.threshold(cfg)))
+        not_pad = headers[:, 5] == 0
+        mask = nms.interior_mask(resp.shape[-2:], cfg.halo, headers[:, 3],
+                                 headers[:, 4]) & not_pad[:, None, None]
+        count = nms.count_above(resp, thr, mask)
+        resp_nms = nms.nms3x3(resp)
+        ys, xs, scores, valid = nms.topk_keypoints(
+            resp_nms, cfg.max_keypoints_per_tile, thr, mask)
+        out = {"count": count, "scores": scores, "valid": valid}
+        # global scene coordinates (interior-relative)
+        out["ys"] = headers[:, 1:2] * cfg.tile + (ys - cfg.halo)
+        out["xs"] = headers[:, 2:3] * cfg.tile + (xs - cfg.halo)
     if spec.describe is not None:
-        desc = spec.describe(tiles, ys, xs, use_kernels)
-        out["desc"] = torch.where(valid[..., None], desc,
-                                  torch.zeros_like(desc))
+        with span(f"difet.describe.{alg}", "engine", **attrs):
+            desc = spec.describe(tiles, ys, xs, use_kernels)
+            out["desc"] = torch.where(valid[..., None], desc,
+                                      torch.zeros_like(desc))
     return out
 
 
@@ -143,10 +163,8 @@ def extract_tile(algorithm: str, cfg: DifetConfig, tile: torch.Tensor,
     """The DIFET 'map function' for one tile [H, W] and its header (the
     paper's pseudo-code: detect, describe, emit): a dict of fixed-shape
     features, as `extract_tile_multi` gives them for a batch of one."""
-    spec = ALGORITHMS[algorithm]
-    tiles, headers = tile[None], header[None]
-    resp = spec.response(tiles, cfg, use_kernels)
-    out = _select_and_describe(spec, cfg, tiles, headers, resp, use_kernels)
+    out = extract_tile_multi((algorithm,), cfg, tile[None], header[None],
+                             use_kernels)[algorithm]
     return {k: v[0] for k, v in out.items()}
 
 
@@ -154,15 +172,19 @@ def iter_tile_multi(algorithms, cfg: DifetConfig, tiles: torch.Tensor,
                     headers: torch.Tensor, use_kernels: bool = True):
     """`extract_tile_multi` one algorithm at a time: yields ``(algorithm,
     features)`` in order, so that a caller can interleave the maps of
-    several devices (`make_distributed_extractor`'s round-robin issue)."""
+    several devices (`make_distributed_extractor`'s round-robin issue).
+    Every span opened here closes before the ``yield``: the caller may
+    step other generators in between."""
     resp_cache = {}
     for alg in algorithms:
-        spec = ALGORITHMS[alg]
-        if spec.response not in resp_cache:
-            resp_cache[spec.response] = spec.response(tiles, cfg, use_kernels)
-        yield alg, _select_and_describe(spec, cfg, tiles, headers,
-                                        resp_cache[spec.response],
-                                        use_kernels)
+        fn = ALGORITHMS[alg].response
+        if fn not in resp_cache:
+            with span(f"difet.response.{_RESPONSE_NAMES[fn]}", "engine",
+                      tiles=tiles.shape[0], k=cfg.max_keypoints_per_tile):
+                resp_cache[fn] = fn(tiles, cfg, use_kernels)
+        feats = _select_and_describe(alg, cfg, tiles, headers, resp_cache[fn],
+                                     use_kernels)
+        yield alg, feats
 
 
 def extract_tile_multi(algorithms, cfg: DifetConfig, tiles: torch.Tensor,
@@ -173,6 +195,13 @@ def extract_tile_multi(algorithms, cfg: DifetConfig, tiles: torch.Tensor,
     feature batched over the N tiles."""
     return dict(iter_tile_multi(algorithms, cfg, tiles, headers,
                                 use_kernels))
+
+
+def _reduce(fn, stage: str, alg: str, *args):
+    """``fn(*args)``, one of the reduces, under the span
+    ``difet.reduce.<alg>``."""
+    with span(f"difet.reduce.{alg}", "engine", stage=stage):
+        return fn(*args)
 
 
 def _reduce_features(per_tile):
@@ -296,11 +325,20 @@ def resolve_device(device=None) -> torch.device:
 def _map(bundle_tiles, bundle_headers, algorithms, cfg: DifetConfig,
          use_kernels: bool, device):
     """Run the map over the whole bundle at once on ``device``."""
-    dev = resolve_device(device)
-    tiles = torch.as_tensor(bundle_tiles, dtype=torch.float32)
-    headers = torch.as_tensor(bundle_headers, dtype=torch.int32)
-    return extract_tile_multi(algorithms, cfg, tiles.to(dev).contiguous(),
-                              headers.to(dev), use_kernels)
+    with span("difet.map", "engine"):
+        dev = resolve_device(device)
+        tiles = torch.as_tensor(bundle_tiles, dtype=torch.float32)
+        headers = torch.as_tensor(bundle_headers, dtype=torch.int32)
+        return extract_tile_multi(algorithms, cfg,
+                                  tiles.to(dev).contiguous(),
+                                  headers.to(dev), use_kernels)
+
+
+def _extract_span(bundle_tiles, algorithms):
+    """The ``difet.extract`` span of an entry point over ``[N, H, W]``."""
+    n, h, w = bundle_tiles.shape
+    return span("difet.extract", "engine", algorithms=",".join(algorithms),
+                tiles=n, tile_hw=f"{h}x{w}")
 
 
 def extract_features(bundle_tiles, bundle_headers, algorithm: str,
@@ -326,9 +364,11 @@ def extract_features_multi(bundle_tiles, bundle_headers, algorithms,
     its own reduce.  Arguments as `extract_features`.  Returns
     {algorithm: result}."""
     algorithms = tuple(algorithms)
-    per_tile = _map(bundle_tiles, bundle_headers, algorithms, cfg,
-                    use_kernels, device)
-    return {alg: _reduce_features(per_tile[alg]) for alg in algorithms}
+    with _extract_span(bundle_tiles, algorithms):
+        per_tile = _map(bundle_tiles, bundle_headers, algorithms, cfg,
+                        use_kernels, device)
+        return {alg: _reduce(_reduce_features, "one", alg, per_tile[alg])
+                for alg in algorithms}
 
 
 def _reduce_requests(per_tile):
@@ -373,9 +413,12 @@ def extract_request_features(bundle_tiles, bundle_headers, algorithms,
     depend on that row alone, so a request's result is bit-identical
     whatever batch it rode in."""
     algorithms = tuple(algorithms)
-    per_tile = _map(bundle_tiles, bundle_headers, algorithms, cfg,
-                    use_kernels, device)
-    return {alg: _reduce_requests(per_tile[alg]) for alg in algorithms}
+    with _extract_span(bundle_tiles, algorithms):
+        per_tile = _map(bundle_tiles, bundle_headers, algorithms, cfg,
+                        use_kernels, device)
+        return {alg: _reduce(_reduce_requests, "requests", alg,
+                             per_tile[alg])
+                for alg in algorithms}
 
 
 def make_serve_step(algorithms, cfg: DifetConfig, use_kernels: bool = True,
@@ -385,7 +428,9 @@ def make_serve_step(algorithms, cfg: DifetConfig, use_kernels: bool = True,
     with the inputs already on ``device`` (the card unless
     ``device="cpu"``).  It makes no host synchronization, so
     `serve/buckets.py::CompileCache` captures it once per pair as a CUDA
-    graph at the scheduler's fixed batch shape and replays it."""
+    graph at the scheduler's fixed batch shape and replays it.  Its spans
+    (the engine's) therefore record at capture only: a replay runs no
+    Python."""
     algorithms = tuple(algorithms)
     dev = resolve_device(device)
 
@@ -421,19 +466,22 @@ def make_distributed_multi_extractor(algorithms, cfg: DifetConfig, mesh,
     runner = MeshRunner(mesh)
 
     def run(tiles, headers):
-        tiles = shard(tiles, mesh, torch.float32)
-        headers = shard(headers, mesh, torch.int32)
-        entries = [i for i, p in enumerate(tiles.parts) if len(p)] or [0]
+        with _extract_span(tiles, algorithms):
+            tiles = shard(tiles, mesh, torch.float32)
+            headers = shard(headers, mesh, torch.int32)
+            entries = [i for i, p in enumerate(tiles.parts) if len(p)] or [0]
 
-        def work(i):
-            for alg, feats in iter_tile_multi(algorithms, cfg,
-                                              tiles.parts[i],
-                                              headers.parts[i], use_kernels):
-                yield alg, _local_reduce(feats)
+            def work(i):
+                for alg, feats in iter_tile_multi(
+                        algorithms, cfg, tiles.parts[i], headers.parts[i],
+                        use_kernels):
+                    local = _reduce(_local_reduce, "local", alg, feats)
+                    yield alg, local
 
-        parts = runner.run(work, entries)
-        return {alg: merge_reduced([p[alg] for p in parts], k)
-                for alg in algorithms}
+            parts = runner.run(work, entries)
+            return {alg: _reduce(merge_reduced, "merge", alg,
+                                 [p[alg] for p in parts], k)
+                    for alg in algorithms}
 
     return run
 

@@ -1,10 +1,14 @@
-"""Observability of the port's feature service and its fleet (port of
-``repro/obs``).
+"""Observability of the port: its engine, feature service and fleet
+(port of ``repro/obs``).
 
 * ``metrics.py`` — lock-cheap counters/gauges and fixed-bucket histograms
   with bounded-memory p50/p95/p99 (a copy of the reference's);
-* ``trace.py`` — structured span tracing into a bounded flight recorder,
-  no-op by default (a copy of the reference's);
+* ``trace.py`` — structured span tracing into a bounded flight recorder
+  and onto ``torch.profiler``'s timeline, no-op by default: the service's
+  and fleet's request spans, and the engine's map and reduce
+  (`core/engine.py`: ``difet.extract``, ``difet.map``,
+  ``difet.response.*``, ``difet.select.*``, ``difet.describe.*``,
+  ``difet.reduce.*``), which the benchmark reads per stage;
 * ``profile.py`` — per-call and per-program stamps
   (`kernels/ops.py::match_best2` per dispatch bucket, the matcher
   dispatch's probes, the service's graph captures), plus
@@ -35,11 +39,11 @@ from repro_torch.obs.trace import (FlightRecorder, NoopRecorder,  # noqa: F401
                                    new_trace_id, current_trace_id, use_trace,
                                    span, emit_span)
 from repro_torch.obs.profile import (KernelProfiler, profiler,  # noqa: F401
-                                     set_profiler, profile_call, record_call,
+                                     set_profiler, record_call,
                                      record_compile, capture)
 from repro_torch.obs.export import (spans_to_chrome,  # noqa: F401
                                     write_chrome_trace, metrics_payload,
-                                    write_metrics_json, validate_chrome_trace,
+                                    validate_chrome_trace,
                                     latency_breakdown, render_report,
                                     render_prometheus)
 from repro_torch.obs.ship import (TelemetryShipper, span_to_wire,  # noqa: F401

@@ -35,7 +35,7 @@ if TYPE_CHECKING:     # obs/trace.py imports this module for its dumps
     from repro_torch.obs.trace import Span
 
 __all__ = ["spans_to_chrome", "write_chrome_trace", "metrics_payload",
-           "write_metrics_json", "validate_chrome_trace",
+           "validate_chrome_trace",
            "latency_breakdown", "render_report", "render_prometheus"]
 
 # the per-layer latency histograms the breakdown table reports, in
@@ -88,16 +88,6 @@ def metrics_payload(registry: Optional[_metrics.MetricsRegistry] = None,
     if extra:
         doc.update(extra)
     return doc
-
-
-def write_metrics_json(path: str,
-                       registry: Optional[_metrics.MetricsRegistry] = None,
-                       extra: Optional[dict] = None) -> str:
-    """Write :func:`metrics_payload` to ``path``; returns it."""
-    with open(path, "w") as f:
-        json.dump(metrics_payload(registry, extra), f, indent=1,
-                  sort_keys=True, default=str)
-    return path
 
 
 def validate_chrome_trace(doc: dict,

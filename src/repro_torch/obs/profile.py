@@ -19,13 +19,12 @@ import contextlib
 import itertools
 import os
 import threading
-import time
 from typing import Dict, Iterator, Optional
 
 import torch
 
-__all__ = ["KernelProfiler", "profiler", "set_profiler", "profile_call",
-           "record_call", "record_compile", "capture"]
+__all__ = ["KernelProfiler", "profiler", "set_profiler", "record_call",
+           "record_compile", "capture"]
 
 
 class KernelProfiler:
@@ -116,25 +115,6 @@ def record_compile(key: str, compile_s: float) -> None:
     p = _PROFILER
     if p.enabled:
         p.record_compile(key, compile_s)
-
-
-@contextlib.contextmanager
-def profile_call(key: str, *, block=None) -> Iterator[None]:
-    """Time a block under ``key`` when profiling is enabled (one boolean
-    check otherwise).  ``block`` (optional) is called with no args before
-    the clock stops — pass ``torch.cuda.synchronize`` so queued device
-    work is actually on the clock."""
-    p = _PROFILER
-    if not p.enabled:
-        yield
-        return
-    t0 = time.monotonic()
-    try:
-        yield
-    finally:
-        if block is not None:
-            block()
-        p.record_call(key, time.monotonic() - t0)
 
 
 @contextlib.contextmanager

@@ -1,26 +1,39 @@
 """Structured span tracing: request-scoped timelines across every layer
-of the serving stack, recorded into a bounded flight recorder.
+of the serving stack and the engine, recorded into a bounded flight
+recorder and, while ``torch.profiler`` records, onto the profiler's
+timeline.
 
 A *span* is one timed operation (``queue_wait``, ``device_step``,
-``disk_get``, ``readmit``, …) tagged with the **trace id** minted when
-its request passed router admission — so one request's whole journey
+``disk_get``, ``difet.map``, …) tagged with a **trace id**: the one minted
+when its request passed router admission, so one request's whole journey
 (admission → replica queue → batch execution → cache tiers → possibly a
 ``readmit`` hop after ``ReplicaDied``) shares one id and renders as one
-lane in ``chrome://tracing`` (`obs/export.py`).
+lane in ``chrome://tracing`` (`obs/export.py`); or, for a span opened with
+no ambient id and no enclosing span, one minted for it and its children
+(all spans of one `core/engine.py::extract_features_multi` call share it).
+A span opened inside another gets the enclosing span's id as its
+``parent_id`` (a contextvar), unless the caller passes one.
 
-The recorder is process-global and defaults to :class:`NoopRecorder`:
-every instrumentation site guards on ``enabled()`` before touching a
-clock, so the disabled cost is one attribute read per site — so an
-untraced service pays nothing measurable for the instrumentation.  :class:`FlightRecorder` keeps the last N
-finished spans in a ring buffer and can dump them as Chrome-trace JSON
-on demand or on a crash/shed trigger (``dump_on``) — the "what was the
-fleet doing right before it died" artifact.
+The recorder is process-global and defaults to :class:`NoopRecorder`.
+:func:`span` checks two booleans, the recorder's ``enabled`` and
+whether a ``torch.profiler`` is recording; with both off it is a bare
+yield: no clock read, no ``record_function``, no synchronization.  While
+a profiler records, :func:`span` also enters
+``torch.profiler.record_function`` under the span's name around the same
+block, so the span's interval lies on the timeline of the card's kernels
+and copies (the profiler stamps both on the host's clock).  A span must
+close where it opened: in a generator, before the ``yield``.
+:class:`FlightRecorder` keeps the last N finished spans in a ring buffer
+and can dump them as Chrome-trace JSON on demand or on a crash/shed
+trigger (``dump_on``) — the "what was the fleet doing right before it
+died" artifact.
 
-Timestamps are ``time.monotonic()`` floats; cross-thread ordering within
-a process is meaningful (Linux CLOCK_MONOTONIC), and the exporter
-rebases to trace start.  Instrumentation only *observes* — it never
-changes batch formation, routing, or numerics, so traced runs stay
-bit-identical to untraced ones (tested).
+The recorder's timestamps are ``time.monotonic()`` floats; cross-thread
+ordering within a process is meaningful (Linux CLOCK_MONOTONIC), and the
+exporter rebases to trace start.  Instrumentation only *observes*: it
+never touches a tensor's values and never changes batch formation,
+routing, or numerics, so traced runs stay bit-identical to untraced ones
+(tested).
 """
 from __future__ import annotations
 
@@ -33,6 +46,9 @@ import threading
 import time
 from collections import deque
 from typing import Dict, Iterator, List, Optional, Tuple
+
+from torch.autograd import _profiler_enabled
+from torch.profiler import record_function
 
 from repro_torch.obs.export import (spans_to_chrome,  # noqa: F401
                                     write_chrome_trace)
@@ -166,6 +182,8 @@ _trace_ids = itertools.count(1)
 _span_ids = itertools.count(1)
 _current: "contextvars.ContextVar[str]" = contextvars.ContextVar(
     "difet_trace_id", default="")
+_current_span: "contextvars.ContextVar[str]" = contextvars.ContextVar(
+    "difet_span_id", default="")
 
 
 def get_recorder():
@@ -239,18 +257,38 @@ def emit_span(name: str, layer: str, t0: float, t1: float, *,
 
 @contextlib.contextmanager
 def span(name: str, layer: str, *, trace_id: Optional[str] = None,
-         parent_id: str = "", **attrs) -> Iterator[None]:
-    """Time a block and record it as one span.  When tracing is off this
-    is one boolean check and a bare yield — the zero-cost-when-disabled
-    contract the serving hot paths rely on."""
+         parent_id: Optional[str] = None, **attrs) -> Iterator[None]:
+    """Time a block as one span: recorded when the recorder is enabled,
+    and entered as ``record_function(name)`` while a ``torch.profiler``
+    records.  ``trace_id`` defaults to the ambient one (minted for a root
+    span when there is none) and ``parent_id`` to the enclosing span's.
+    With both off this is two boolean checks and a bare yield — the
+    zero-cost-when-disabled contract the hot paths rely on."""
     rec = _RECORDER
+    profiling = _profiler_enabled()
     if not rec.enabled:
-        yield
+        if not profiling:
+            yield
+            return
+        with record_function(name):
+            yield
         return
+    parent = _current_span.get() if parent_id is None else parent_id
+    tid = _current.get() if trace_id is None else trace_id
+    if not tid and not parent:
+        tid = new_trace_id()
+    sid = new_span_id()
+    trace_tok, span_tok = _current.set(tid), _current_span.set(sid)
     t0 = time.monotonic()
     try:
-        yield
+        if profiling:
+            with record_function(name):
+                yield
+        else:
+            yield
     finally:
-        emit_span(name, layer, t0, time.monotonic(), trace_id=trace_id,
-                  parent_id=parent_id, **attrs)
-
+        t1 = time.monotonic()
+        _current_span.reset(span_tok)
+        _current.reset(trace_tok)
+        emit_span(name, layer, t0, t1, trace_id=tid, parent_id=parent,
+                  span_id=sid, **attrs)

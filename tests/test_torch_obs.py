@@ -284,12 +284,10 @@ def test_profiler_disabled_by_default_and_rows_when_on():
     assert obs_profile.profiler().snapshot() == {}
     prev = obs_profile.set_profiler(obs_profile.KernelProfiler())
     try:
-        with obs_profile.profile_call("k1"):
-            pass
         obs_profile.record_call("k1", 0.5)
         obs_profile.record_compile("k1", 2.0)
         rows = obs_profile.profiler().snapshot()
-        assert rows["k1"]["calls"] == 2 and rows["k1"]["wall_s"] >= 0.5
+        assert rows["k1"]["calls"] == 1 and rows["k1"]["wall_s"] == 0.5
         assert rows["k1"]["compiles"] == 1 and rows["k1"]["compile_s"] == 2.0
     finally:
         obs_profile.set_profiler(prev)
