@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-Run from the root of a checkout, with no arguments: ``python3 chip_smoke.py``.
+Run from the root of a checkout, with no arguments: ``python3 chip_smoke.py``
+(``--select``: the build and the selection kernel's rows of step 2 alone).
 
 1. Builds the five CUDA kernel libraries from ``src/repro_torch/kernels/csrc``
    with nvcc for sm_90a (one process per source, all at once), prints the
@@ -25,7 +26,11 @@ Run from the root of a checkout, with no arguments: ``python3 chip_smoke.py``.
    whose rings let one block on an SM) at 81 x 200 and 304^2, at N = 1, on
    a misaligned view, and at a width one column past the default strip;
    and every octave the wrapper accepts (spo 1-6, sigma0 0.3-6) must get a
-   launch geometry from the kernel.
+   launch geometry from the kernel.  The selection kernel (NMS, ownership,
+   count and top-K) bit for bit, every field, on every algorithm's map at
+   both benchmark cells' shapes (with its time, least time and the twin's),
+   under CUDA-graph capture at a serving bucket, at K 1 and K = H W on
+   small tiles, past the shared-memory sort, and on a side stream.
 3. Drives the main path: ``extract_features_multi`` over the paper's full
    scene (7681 x 7831, 256 tiles of 560^2, ``DifetConfig()``, all seven
    algorithms) through the kernels, with every launch counter set to 0
@@ -295,11 +300,14 @@ REPLACES = {
     # one kernel replaces both of the reference's matcher kernels
     "matcher": "src/repro/kernels/matcher.py:219; "
                "src/repro/kernels/matcher.py:257",
+    # the reference selects with reduce_window and top_k, no Pallas kernel
+    "select": "none (src/repro/core/nms.py)",
 }
 SOURCES = {"harris": "harris.cu", "fast": "fastscore.cu", "blur": "blur.cu",
-           "scalespace": "scalespace.cu", "matcher": "matcher.cu"}
-EXTRACT_KERNELS = ("harris", "fast", "blur", "scalespace")
-MAIN_KERNELS = ("harris", "fast", "blur")     # the tile-512 path's kernels
+           "scalespace": "scalespace.cu", "matcher": "matcher.cu",
+           "select": "select.cu"}
+EXTRACT_KERNELS = ("harris", "fast", "blur", "scalespace", "select")
+MAIN_KERNELS = ("harris", "fast", "blur", "select")   # the tile-512 path's
 MATCH_KERNELS = ("matcher",)
 # the matching path's descriptors: (metric, words or dimensions)
 MATCH_WIDTHS = {"sift": ("l2", 128), "surf": ("l2", 64),
@@ -411,7 +419,7 @@ SMOLLM_GAPS_BEFORE = {"4x1": 1.155e-3, "2x2": 3.306e-3}
 DEVICE_NAMES = {"harris": ("harris_kernel",), "fast": ("fast_tiled",),
                 "blur": ("blur_tiled", "blur_small"),
                 "scalespace": ("scalespace_strip",),
-                "matcher": ("match_kernel",)}
+                "matcher": ("match_kernel",), "select": ("difet_select",)}
 
 
 def ptxas_entries(text):
@@ -855,6 +863,141 @@ def check_matcher(torch, np, dev):
             f"queries; max|err| {max(e1, e3):.3g} "
             f"({time.perf_counter() - t0:.1f} s)")
     return err
+
+
+def select_phase(torch, np, dev, cells):
+    """The selection kernel (``ops.select_keypoints``, csrc/select.cu)
+    against its twin (``core/nms.py::select_keypoints`` run on the card),
+    every field bit for bit and dtype for dtype, and each shape run twice
+    (identical): every algorithm's map at each cell's shape (``cells``:
+    (label, cfg, tiles, headers)); a serving bucket's shape (8 tiles of
+    288^2, halo 16, K 128) captured in a CUDA graph and replayed on two
+    inputs; K 1 and K = H W on small tiles (a padding tile, extents 1, 5
+    and 17) at thresholds 0, 0.25 and -0.3 over plateaus; the scratch
+    sort (more than 4096 keys) with and without the radix select; a side
+    stream, as a mesh entry's.  Times each algorithm's call at the cells'
+    shapes: kernel ms by events [device ms under the profiler], its least
+    time (bytes, ``portbench/work/select.py``), the twin's ms.  Returns
+    ({cell label: [row]}, the paper cell's launch-weighted (ms, bound))."""
+    from portbench.work.select import work as select_work
+    from repro_torch.core import engine, nms
+    from repro_torch.kernels import ops
+    fields = ("count", "ys", "xs", "scores", "valid")
+
+    def bits(t):
+        return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+    def held(resp, headers, what, **kw):
+        got = ops.select_keypoints(resp, headers, **kw)
+        again = ops.select_keypoints(resp, headers, **kw)
+        want = nms.select_keypoints(resp, headers, **kw)
+        torch.cuda.synchronize()
+        for name, a, b, c in zip(fields, got, want, again):
+            require(a.dtype == b.dtype and a.shape == b.shape
+                    and torch.equal(bits(a), bits(b)),
+                    f"select {what}: {name} differs from the twin")
+            require(torch.equal(bits(a), bits(c)),
+                    f"select {what}: two runs differ in {name}")
+        log(f"  select {what:52s} {str(tuple(resp.shape)):16s} k {kw['k']:5d}"
+            f" thr {kw['threshold']:+.4g}: bitwise, {int(got[0].sum())} "
+            f"counted, {int(got[4].sum())} valid slots")
+        return got
+
+    log("selection kernel against its twin on the card (bitwise, every "
+        "field):")
+    rows, paper_total = {}, (0.0, 0.0)
+    for label, cfg, tiles, headers in cells:
+        maps, rows[label] = {}, []
+        for alg, spec in engine.ALGORITHMS.items():
+            if spec.response not in maps:
+                maps[spec.response] = spec.response(tiles, cfg, True)
+            resp = maps[spec.response]
+            kw = dict(k=cfg.max_keypoints_per_tile,
+                      threshold=float(np.float32(spec.threshold(cfg))),
+                      halo=cfg.halo)
+            held(resp, headers, f"{label} {alg}", **kw)
+            run = lambda: ops.select_keypoints(resp, headers, **kw)
+            row = dict(algorithm=alg, shape=list(resp.shape), ms=cuda_ms(run),
+                       device_ms=device_us_per_call(torch, run, 10) / 1e3,
+                       plain_ms=cuda_ms(
+                           lambda: nms.select_keypoints(resp, headers, **kw)),
+                       launches=1)
+            row["bound_ms"], row["bound_by"] = bound(
+                select_work(tuple(resp.shape), headers, **kw))
+            log(f"    {label} {alg:10s} kernel {row['ms']:.4f} ms "
+                f"[{row['device_ms']:.4f}]  least {row['bound_ms']:.4f} ms "
+                f"({row['bound_by']})  plain {row['plain_ms']:.4f} ms  "
+                f"launches per scene 1")
+            rows[label].append(row)
+        del maps
+    paper = rows[cells[0][0]]
+    paper_total = (sum(r["ms"] for r in paper),
+                   sum(r["bound_ms"] for r in paper))
+
+    # a serving bucket under graph capture: static inputs, replayed twice
+    cfg_b = cells[1][1]
+    b_tiles = cells[1][2][:8, 8:296, 8:296].contiguous()
+    b_hdr = cells[1][3][:8].clone()
+    b_hdr[:, 3:5] = 256
+    b_hdr[5, 3], b_hdr[5, 4] = 1, 151
+    kw = dict(k=128, threshold=float(np.float32(
+        engine.ALGORITHMS["harris"].threshold(cfg_b))), halo=16)
+    harris = engine.ALGORITHMS["harris"].response
+    maps = [harris(t, cfg_b, True) for t in (b_tiles, b_tiles.flip(-1))]
+    static = maps[0].clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ops.select_keypoints(static, b_hdr, **kw)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ops.select_keypoints(static, b_hdr, **kw)
+    for i, m in enumerate(maps):
+        static.copy_(m)
+        graph.replay()
+        want = nms.select_keypoints(m, b_hdr, **kw)
+        torch.cuda.synchronize()
+        for name, a, b in zip(fields, out, want):
+            require(torch.equal(bits(a), bits(b)),
+                    f"select under graph replay {i}: {name} differs")
+    log(f"  select captured in a CUDA graph at {tuple(static.shape)}, k 128,"
+        f" two replays on two maps: bitwise the twin")
+
+    # small tiles: K 1 and K = H W, plateaus, a padding tile, edge extents
+    gen = torch.Generator(device=dev).manual_seed(3)
+    q = torch.randint(0, 4, (6, 40, 40), generator=gen, device=dev) / 4.0
+    hdr = torch.tensor([[0, 0, 0, 32, 32, 0], [0, 0, 1, 1, 32, 0],
+                        [0, 1, 0, 32, 1, 0], [0, 1, 1, 32, 32, 1],
+                        [0, 2, 0, 17, 5, 0], [0, 2, 1, 32, 32, 0]],
+                       dtype=torch.int32, device=dev)
+    for k in (1, 40 * 40):
+        for m, thr in ((q, 0.0), (q, 0.25), (q - 0.5, -0.3)):
+            held(m.contiguous(), hdr,
+                 "small tiles, plateaus", k=k, threshold=thr, halo=4)
+    # more than 4096 keys: the scratch sort, with and without the select
+    big = (torch.randint(0, 64, (2, 80, 80), generator=gen, device=dev)
+           / 64.0 - 0.5)
+    hdr2 = torch.tensor([[0, 0, 0, 72, 72, 0], [0, 0, 1, 70, 33, 0]],
+                        dtype=torch.int32, device=dev)
+    for k, thr in ((6400, -1.0), (4500, -1.0), (6400, 0.0), (300, -1.0)):
+        held(big, hdr2, "80^2, scratch sort", k=k, threshold=thr, halo=4)
+    # a side stream, as a mesh entry issues its work
+    resp = harris(cells[0][2][:16], cells[0][1], True)
+    kw = dict(k=512, threshold=float(np.float32(
+        engine.ALGORITHMS["harris"].threshold(cells[0][1]))), halo=24)
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got = ops.select_keypoints(resp, cells[0][3][:16], **kw)
+    side.synchronize()
+    want = nms.select_keypoints(resp, cells[0][3][:16], **kw)
+    torch.cuda.synchronize()
+    for name, a, b in zip(fields, got, want):
+        require(torch.equal(bits(a), bits(b)),
+                f"select on a side stream: {name} differs")
+    log("  select on a side stream (a mesh entry's): bitwise the twin")
+    log("select_rows " + json.dumps(rows))
+    return rows, paper_total
 
 
 def host_us_per_call(torch, fn, n=200):
@@ -3587,7 +3730,9 @@ def mesh_cards_main(n_cards: int) -> int:
     return 0
 
 
-def main() -> int:
+def main(select_only: bool = False) -> int:
+    """The whole run; ``select_only`` (``--select``): the build and the
+    selection kernel's rows (`select_phase`) alone."""
     # phase 3h runs in torch's deterministic mode, whose cuBLAS calls need
     # this workspace setting in place before the process's first GEMM
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -3648,6 +3793,18 @@ def main() -> int:
         f"set-up {time.perf_counter() - t0:.1f} s")
     require(tiles.shape == (256, 560, 560), "the paper scene must cut into "
             "256 tiles of 560^2")
+    if select_only:
+        cfg256 = DifetConfig(tile=256, halo=24, max_keypoints_per_tile=256)
+        bundle256 = tile_scene(scene, cfg256)
+        select_phase(torch, np, dev, (
+            ("paper", cfg, tiles, headers),
+            ("sift-t256", cfg256, torch.from_numpy(bundle256.tiles).to(dev),
+             torch.from_numpy(bundle256.headers).to(dev))))
+        phase_done("2 (the selection kernel)")
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     # ---- 2. each kernel against its plain twin ------------------------------
     err = {k: 0.0 for k in ops.KERNELS}
@@ -3824,6 +3981,10 @@ def main() -> int:
     del got, want, octave_bases, ss_cases, ss_buf, ss_view
     torch.cuda.synchronize()
     err["matcher"] = check_matcher(torch, np, dev)
+    select_rows, select_total = select_phase(
+        torch, np, dev, (("paper", cfg, x, headers),
+                         ("sift-t256", cfg256, tiles256, headers256)))
+    err["select"] = 0.0
 
     phase_done("2 (kernels against their twins)")
 
@@ -4543,7 +4704,9 @@ def main() -> int:
     path_totals = {"harris": weighted(harris_rows),
                    "fast": weighted([rows["fast"]]),
                    "blur": weighted(blur_rows),
-                   "scalespace": weighted([ss_full])}
+                   "scalespace": weighted([ss_full]),
+                   "select": select_total}
+    rows["select"] = dict(select_rows["paper"][0], library_ms=None)
     for name, (t_ms, b_ms) in path_totals.items():
         log(f"  {name:10s} launch-weighted over its path: kernel "
             f"{t_ms:.4f} ms, bound {b_ms:.4f} ms")
@@ -4757,7 +4920,10 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--lm-worker"] and len(sys.argv) == 5:
         sys.exit(lm_worker_main(sys.argv[2], tuple(
             int(n) for n in sys.argv[3].split("x")), Path(sys.argv[4])))
+    if sys.argv[1:] == ["--select"]:
+        sys.exit(main(select_only=True))
     if sys.argv[1:]:
-        print("usage: chip_smoke.py [--mesh-cards N]", file=sys.stderr)
+        print("usage: chip_smoke.py [--mesh-cards N | --select]",
+              file=sys.stderr)
         sys.exit(2)
     sys.exit(main())

@@ -9,10 +9,10 @@ reduce (collect outputs)            count sum + global top-K merge
 
 Port of ``repro/core/engine.py``.  The map runs on the whole ``[N, H, W]``
 bundle at once (the reference's ``vmap`` written out).  With
-``use_kernels=True``, the entry points' default, the response maps and blurs
-go through the CUDA kernels (on a CPU tensor, through their plain twins),
-mirroring ``use_pallas``; ``use_kernels=False`` is the reference's plain
-route.
+``use_kernels=True``, the entry points' default, the response maps, blurs
+and the selection go through the CUDA kernels (on a CPU tensor, through
+their plain twins), mirroring ``use_pallas``; ``use_kernels=False`` is the
+reference's plain route.
 
 Spans (`obs/trace.py::span`, layer ``engine``; no-ops unless the flight
 recorder or a ``torch.profiler`` is on): ``difet.extract`` around an entry
@@ -139,13 +139,13 @@ def _select_and_describe(alg: str, cfg: DifetConfig, tiles, headers, resp,
     attrs = dict(tiles=tiles.shape[0], k=cfg.max_keypoints_per_tile)
     with span(f"difet.select.{alg}", "engine", **attrs):
         thr = float(np.float32(spec.threshold(cfg)))
-        not_pad = headers[:, 5] == 0
-        mask = nms.interior_mask(resp.shape[-2:], cfg.halo, headers[:, 3],
-                                 headers[:, 4]) & not_pad[:, None, None]
-        count = nms.count_above(resp, thr, mask)
-        resp_nms = nms.nms3x3(resp)
-        ys, xs, scores, valid = nms.topk_keypoints(
-            resp_nms, cfg.max_keypoints_per_tile, thr, mask)
+        args = (resp.contiguous(), headers.contiguous())
+        kw = dict(k=cfg.max_keypoints_per_tile, threshold=thr, halo=cfg.halo)
+        if use_kernels:
+            from repro_torch.kernels import ops
+            count, ys, xs, scores, valid = ops.select_keypoints(*args, **kw)
+        else:
+            count, ys, xs, scores, valid = nms.select_keypoints(*args, **kw)
         out = {"count": count, "scores": scores, "valid": valid}
         # global scene coordinates (interior-relative)
         out["ys"] = headers[:, 1:2] * cfg.tile + (ys - cfg.halo)
@@ -348,8 +348,9 @@ def extract_features(bundle_tiles, bundle_headers, algorithm: str,
 
     ``bundle_tiles`` [N,H,W] and ``bundle_headers`` [N,6] are numpy arrays
     or tensors; they run on ``device`` (the CUDA card unless
-    ``device="cpu"``), all tiles at once.  By default the response maps and
-    blurs go through the CUDA kernels (their plain twins on a CPU tensor);
+    ``device="cpu"``), all tiles at once.  By default the response maps,
+    blurs and the selection go through the CUDA kernels (their plain twins
+    on a CPU tensor);
     ``use_kernels=False`` takes the reference's plain ``use_pallas=False``
     route."""
     return extract_features_multi(bundle_tiles, bundle_headers, (algorithm,),

@@ -76,6 +76,22 @@ def topk_keypoints(resp: torch.Tensor, k: int, threshold: float,
     return ys, xs, scores, valid
 
 
+def select_keypoints(resp: torch.Tensor, headers: torch.Tensor, k: int,
+                     threshold: float, halo: int):
+    """The per-tile selection of a batch of response maps ``resp``
+    [N, H, W] with their tile headers [N, 6] (valid_h, valid_w at 3 and 4,
+    the padding flag at 5): the exact count of owned pixels above
+    ``threshold`` on the dense map (int32 [N]), then NMS and the top-K of
+    the owned survivors (`topk_keypoints`).  Returns (count, ys, xs,
+    scores, valid).  The plain twin of ``kernels/csrc/select.cu``."""
+    not_pad = headers[:, 5] == 0
+    mask = interior_mask(resp.shape[-2:], halo, headers[:, 3],
+                         headers[:, 4]) & not_pad[:, None, None]
+    count = count_above(resp, threshold, mask)
+    ys, xs, scores, valid = topk_keypoints(nms3x3(resp), k, threshold, mask)
+    return count, ys, xs, scores, valid
+
+
 def merge_topk(scores_a, payload_a, scores_b, payload_b, k: int):
     """Merge two top-K sets (the reduce's 'shuffle' step): the k largest of
     both score sets along the last dim, in `stable_topk`'s order (ties to

@@ -27,7 +27,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("harris", "fastscore", "blur", "scalespace", "matcher")
+SOURCES = ("harris", "fastscore", "blur", "scalespace", "matcher", "select")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "--ptxas-options=-v")
 MAX_RADIUS = 16          # csrc/common.cuh MAX_TAPS = 2 * 16 + 1

@@ -5,6 +5,9 @@ counterparts): ``harris``, ``gaussian_blur``, ``fast_score`` and
 themselves, so the reference's host-side pad and its TPU-only 128-lane edge
 pad have no counterpart here; neither changes the cropped output.
 
+``select_keypoints`` is the per-tile keypoint selection of response maps
+(NMS, ownership, the exact count and the stable top-K).
+
 ``match_best2`` is the descriptor matcher; its kernel masks its own ragged
 query and database edges, so the reference's zero-padding of D to 128 lanes
 and of the queries to ``QBLOCK`` has no counterpart either.
@@ -23,6 +26,7 @@ from repro_torch.kernels import harris as _harris
 from repro_torch.kernels import matcher as _matcher
 from repro_torch.kernels import ref
 from repro_torch.kernels import scalespace as _scalespace
+from repro_torch.kernels import select as _select
 from repro_torch.obs import profile as _obs_profile
 
 KERNELS = {
@@ -31,6 +35,7 @@ KERNELS = {
     "blur": _blur.KERNEL,
     "scalespace": _scalespace.KERNEL,
     "matcher": _matcher.KERNEL,
+    "select": _select.KERNEL,
 }
 
 
@@ -89,6 +94,9 @@ def scalespace_pad(scales_per_octave: int, sigma0: float = 1.6) -> int:
     """The fused octave's one-time padding: cumulative blur radius + 1."""
     return sum((len(t) - 1) // 2
                for t in ref.scalespace_taps(scales_per_octave, sigma0)) + 1
+
+
+select_keypoints = _select.select_keypoints
 
 
 # The JAX reference's octave-fusion rule, byte for byte

@@ -210,7 +210,8 @@ def test_wrappers_keep_rank_and_count_no_cpu_launch():
         assert ops.match_best2(words, words, metric="hamming",
                                path=path)[0].shape == (5,)
     assert ops.launch_counts() == {"harris": 0, "fast": 0, "blur": 0,
-                                   "scalespace": 0, "matcher": 0}
+                                   "scalespace": 0, "matcher": 0,
+                                   "select": 0}
 
 
 def test_wrapper_input_checks():
