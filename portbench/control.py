@@ -5,7 +5,8 @@ cell's own size on the card.
         --control-seeds 1,2,3
 
 For each seed, the first scene of the cell's pool (as ``run.py`` draws
-it) goes through the program's timed entry, the plain reference, and, for
+and, on a mesh, stages it) goes through the program's timed entry (over the
+cell's mesh on a cell of more than one card), the plain reference, and, for
 the control seeds, the control: the reference computed in bfloat16 and put
 in the program's place.  Each is compared with the reference as a run
 compares it.  Prints one JSON line per seed, then the largest reading of
@@ -39,7 +40,8 @@ def main(argv=None) -> int:
     cell, cfg, traffic = run.cell_spec(bench, args.workload)
     algs = traffic["algorithms"]
     one = dict(traffic, pool_scenes=1)
-    entry = run.program_entry(cfg, algs)
+    mesh = run.cell_mesh(cell)
+    entry = run.program_entry(cfg, algs, mesh)
     seeds = [int(s) for s in args.seeds.split(",")]
     controls = {int(s) for s in args.control_seeds.split(",") if s}
     low = {n: 0 for n in compare.LIMITS}
@@ -47,8 +49,10 @@ def main(argv=None) -> int:
     for seed in seeds:
         t0 = time.perf_counter()
         with torch.no_grad():
-            tiles, headers = run.make_pool(cfg, one, seed, "cuda:0")[0]
-            got = run.to_host(entry(tiles, headers))
+            pool = run.make_pool(cfg, one, seed, "cuda:0", mesh)
+            got = run.to_host(entry(*pool[0]))
+            tiles, headers = (run.whole(x, "cuda:0") for x in pool[0])
+            del pool
         want = reference.extract(tiles, headers, algs, cfg)
         line = {"seed": seed, "program": compare.numbers(got, want),
                 "total_count": {a: int(want[a]["total_count"])

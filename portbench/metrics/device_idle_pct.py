@@ -1,5 +1,6 @@
 """Share of the traced window in which no kernel, copy or memset ran on
-the card."""
+the card; on more than one card, the mean over the cards of each card's
+share (`Trace.busy_s` is the cards' mean)."""
 
 
 def read(trace):

@@ -2,7 +2,8 @@
 host, inside a ``difet.*`` span of the program: the idle that the engine's
 own host work causes (synchronizations, pageable copies, Python between
 launches), as against the harness's loop.  The gaps are those of
-`Trace.breakdown`: between the merged busy intervals of the window."""
+`Trace.gaps`, card by card; on more than one card the reading is the mean
+over the cards."""
 from portbench.metrics.span import innermost, program_spans
 
 
@@ -10,11 +11,10 @@ def read(trace):
     spans = program_spans(trace)
     if not spans or not (trace.kernels or trace.copies):
         return None
-    gaps, prev = [], trace.window[0]
-    for s, t in trace.busy() + [[trace.window[1], trace.window[1]]]:
-        if s > prev:
-            gaps.append((prev, s))
-        prev = max(prev, t)
-    inside = innermost(spans, [(s + t) / 2 for s, t in gaps])
-    return sum(t - s for (s, t), name in zip(gaps, inside)
-               if name is not None) * 1e-3 / trace.scenes
+    total = 0.0
+    for card in trace.cards:
+        gaps = trace.gaps(card)
+        inside = innermost(spans, [(s + t) / 2 for s, t in gaps])
+        total += sum(t - s for (s, t), name in zip(gaps, inside)
+                     if name is not None)
+    return total * 1e-3 / len(trace.cards) / trace.scenes

@@ -4,11 +4,13 @@ innermost of its ``difet.*`` spans (`repro_torch/core/engine.py`:
 ``response``, ``select``, ``describe``, ``reduce``).
 
 A device activity is tied to its launch exactly, never by overlapping host
-and device times: a cell runs on one stream, so the n-th launching runtime
-call on the host (``cudaLaunchKernel*``, ``cudaMemcpy*``, ``cudaMemset*``
-and their driver-API forms) is the n-th kernel, copy or memset on the
-device.  Where the two counts differ the pairing does not hold and the
-reader returns None, as it does on a trace with no program span."""
+and device times: the launching runtime call on the host
+(``cudaLaunchKernel*``, ``cudaMemcpy*``, ``cudaMemset*`` and their
+driver-API forms) and the kernel, copy or memset it put on a card share
+the profiler's correlation id, whatever the number of cards and streams.
+Where an activity's launch is not in the window the pairing does not hold
+and the reader returns None, as it does on a trace with no program span; a
+launch whose activity the profiler lost pairs with nothing."""
 
 PREFIX = "difet."
 LAUNCHES = ("cudaLaunchKernel", "cudaMemcpy", "cudaMemset",
@@ -43,16 +45,20 @@ def innermost(spans, times):
 def attribute(trace):
     """{innermost program span at the launch, or None: device seconds} over
     every device activity of the window; None where the trace holds no
-    program span or no device activity, or the launches and activities do
-    not pair one to one."""
+    program span or no device activity, or an activity's launch (by
+    correlation id) is not in the window."""
     spans = program_spans(trace)
-    launches = sorted(s for n, s, _ in trace.host if n.startswith(LAUNCHES))
-    device = sorted(trace.kernels + trace.copies, key=lambda a: a[1])
-    if not spans or not device or len(launches) != len(device):
+    launched = {i: s for (n, s, _), i in zip(trace.host, trace.host_ids)
+                if n.startswith(LAUNCHES)}
+    device = trace.activities
+    if not spans or not device or any(a.id not in launched for a in device):
         return None
+    times = sorted(set(launched[a.id] for a in device))
+    at = dict(zip(times, innermost(spans, times)))
     out = {}
-    for name, (_, s, t) in zip(innermost(spans, launches), device):
-        out[name] = out.get(name, 0.0) + (t - s) * 1e-6
+    for a in device:
+        name = at[launched[a.id]]
+        out[name] = out.get(name, 0.0) + (a.end - a.start) * 1e-6
     return out
 
 

@@ -11,12 +11,18 @@ loads its kernels (built once per checkout, under ``build/``).  The window then
 sends scenes back to back from one client (a closed loop, one scene in
 flight), cycling the pool, each pool scene at least once: a scene is one call of
 ``repro_torch.core.engine.extract_features_multi`` over all its tiles, and
-ends when every requested algorithm's result is on the host.  With
+ends when every requested algorithm's result is on the host, copied into
+page-locked tensors made in set-up (`Landing`).  A cell of n > 1
+cards runs ``engine.make_distributed_multi_extractor`` over
+``data_mesh(n)`` instead: each pool scene is drawn on the first card as
+before, then staged as ``Sharded`` batches, its rows split over the cards
+and resident there, and the results land on the first card.  With
 ``--trace 1`` a few scenes run under ``torch.profiler`` instead, and the
 cell's per-layer metrics are read from that window.
 
-After the window the program's results for a sample of the pool's scenes,
-drawn from the seed, are compared with the plain reference
+After the window the program's results for a sample of the scenes, drawn
+from the seed (up to ``CHECK_PER_SLOT`` runs of each of a few pool slots),
+are compared with the plain reference
 (``portbench/reference/difet.py``) run on the same tiles
 (``portbench/compare.py``).  The last line of standard output is the JSON
 result; the numbers compared, each beside its limit, are the last lines of
@@ -122,12 +128,24 @@ def difet_config(cfg: dict):
                           for k, v in cfg.items() if k in fields})
 
 
-def program_entry(cfg: dict, algorithms):
+def cell_mesh(cell: dict):
+    """The program's ``data_mesh`` of a cell of more than one card, or
+    None."""
+    if cell["chips"] == 1:
+        return None
+    from repro_torch.distributed.sharding import data_mesh
+    return data_mesh(cell["chips"])
+
+
+def program_entry(cfg: dict, algorithms, mesh=None):
     """The timed entry of the system under test: one scene's tiles and
-    headers (on the device) -> {algorithm: result}."""
+    headers (on the device; over ``mesh``, `Sharded` batches on it) ->
+    {algorithm: result}."""
     from repro_torch.core import engine
     dc = difet_config(cfg)
     algs = tuple(algorithms)
+    if mesh is not None:
+        return engine.make_distributed_multi_extractor(algs, dc, mesh)
 
     def entry(tiles, headers):
         return engine.extract_features_multi(tiles, headers, algs, dc,
@@ -140,8 +158,82 @@ def to_host(result: dict) -> dict:
             for alg, r in result.items()}
 
 
-def make_pool(cfg: dict, traffic: dict, seed: int, device):
-    """The traffic's pool of scenes, as [(tiles, headers)] on ``device``."""
+CHECK_PER_SLOT = 32      # results kept for the check, a checked slot
+
+
+def host_rows(result: dict, rows=None, pin=False) -> dict:
+    """Empty host tensors shaped as ``result``'s fields, behind a leading
+    axis of ``rows`` where given; page-locked where ``pin``."""
+    import torch
+    lead = () if rows is None else (rows,)
+    return {alg: {k: torch.empty(lead + tuple(v.shape), dtype=v.dtype,
+                                 pin_memory=pin) for k, v in r.items()}
+            for alg, r in result.items()}
+
+
+def land(result: dict, dst: dict) -> dict:
+    """``result`` copied into the host tensors ``dst`` (a field of another
+    shape or type into a new tensor), returned once all of it is on the
+    host: the end of a scene."""
+    import torch
+    out, cards = {}, set()
+    for alg, r in result.items():
+        out[alg] = {}
+        for k, v in r.items():
+            d = dst.get(alg, {}).get(k)
+            if d is None or d.shape != v.shape or d.dtype != v.dtype:
+                d = torch.empty(v.shape, dtype=v.dtype)
+            out[alg][k] = d.copy_(v, non_blocking=True)
+            if v.is_cuda:
+                cards.add(v.device)
+    for c in cards:
+        torch.cuda.current_stream(c).synchronize()
+    return out
+
+
+class Landing:
+    """Where each scene's result lands on the host.  For each checked slot
+    a uniform sample, drawn from the seed, of at most ``per_slot`` of the
+    scenes that ran it (reservoir sampling) lands straight in its row of
+    a store made in set-up; every other scene lands in one reused set of
+    tensors.  All of it is page-locked on a card, so every scene costs the
+    host the same copy and the window touches no new host memory."""
+
+    def __init__(self, like: dict, check, seed: int,
+                 per_slot: int = CHECK_PER_SLOT, pin: bool = False):
+        self.per_slot = per_slot
+        self.scratch = host_rows(like, None, pin)
+        self.rows = {}
+        for s in check:
+            store = host_rows(like, per_slot, pin)
+            self.rows[s] = [{alg: {k: v[j] for k, v in r.items()}
+                             for alg, r in store.items()}
+                            for j in range(per_slot)]
+        self.seen = dict.fromkeys(check, 0)
+        self.rng = random.Random(f"{seed} kept")
+        self.kept = {}
+
+    def __call__(self, slot: int, result: dict) -> dict:
+        j = None
+        if slot in self.seen:
+            c = self.seen[slot]
+            self.seen[slot] = c + 1
+            j = c if c < self.per_slot else self.rng.randrange(c + 1)
+            j = j if j < self.per_slot else None
+        if j is None:
+            return land(result, self.scratch)
+        self.kept[slot, j] = land(result, self.rows[slot][j])
+        return self.kept[slot, j]
+
+    def items(self):
+        """[(slot, result)] of the scenes kept, in slot order."""
+        return [(s, r) for (s, _), r in sorted(self.kept.items())]
+
+
+def make_pool(cfg: dict, traffic: dict, seed: int, device, mesh=None):
+    """The traffic's pool of scenes, as [(tiles, headers)] drawn on
+    ``device``; over ``mesh``, each staged as `Sharded` batches on it, and
+    nothing of the whole scene left on ``device``."""
     import torch
     from portbench import scenes
     gen = scenes.generator(seed, device)
@@ -150,18 +242,45 @@ def make_pool(cfg: dict, traffic: dict, seed: int, device):
     with torch.no_grad():
         for _ in range(traffic["pool_scenes"]):
             gray = scenes.synthetic_scene(h, w, gen)
-            pool.append(scenes.tile_scene(gray, cfg["tile"], cfg["halo"]))
+            tiles, headers = scenes.tile_scene(gray, cfg["tile"], cfg["halo"])
+            if mesh is not None:
+                tiles = _staged(tiles, mesh, torch.float32)
+                headers = _staged(headers, mesh, torch.int32)
+            pool.append((tiles, headers))
     return pool
+
+
+def _staged(x, mesh, dtype):
+    """``sharding.shard(x, mesh, dtype)`` with no part sharing ``x``'s
+    storage: a part on ``x``'s own device is a view of the whole batch,
+    which would keep all of it resident there."""
+    from repro_torch.distributed.sharding import Sharded, shard
+    whole = x.untyped_storage().data_ptr()
+    return Sharded([p.clone() if p.untyped_storage().data_ptr() == whole
+                    else p for p in shard(x, mesh, dtype).parts], mesh)
+
+
+def whole(x, device):
+    """A batch on ``device``: a `Sharded` batch's parts gathered in
+    order."""
+    import torch
+    parts = getattr(x, "parts", None)
+    if parts is None:
+        return x.to(device)
+    return torch.cat([p.to(device) for p in parts])
 
 
 def measure(cfg: dict, traffic: dict, seed: int, seconds: float,
             trace: bool, device, entry, e2e=(), per_layer=(),
-            t_start=None, marks=(), root: Path = ROOT):
+            t_start=None, marks=(), root: Path = ROOT, mesh=None):
     """Set-up, the window (or the traced scenes), and the check: returns
     (result, compared values) where result has the keys ``correct``,
-    ``attempted``, ``failed``, ``metrics`` and, traced, ``trace``.
-    ``marks`` are the (stage, clock) of set-up before the call; the
-    set-up's split by stage is logged."""
+    ``attempted``, ``failed``, ``metrics``, on CUDA
+    ``memory_peak_bytes_per_card`` and, traced, ``trace``.  ``marks`` are
+    the (stage, clock) of set-up before the call; the set-up's split by
+    stage is logged.  Over ``mesh`` (the mesh ``entry`` runs on) the pool
+    is drawn on ``device`` and staged on the mesh; the reference runs on
+    ``device``."""
     import torch
     from portbench import compare, profiling
     from portbench.reference import difet as reference
@@ -169,23 +288,30 @@ def measure(cfg: dict, traffic: dict, seed: int, seconds: float,
     marks = list(marks)
     dev = torch.device(device)
     cuda = dev.type == "cuda"
+    cards = sorted({d.index for d in (mesh or [dev])}) if cuda else None
 
     def sync():
-        if cuda:
-            torch.cuda.synchronize(dev)
+        for c in cards or ():
+            torch.cuda.synchronize(c)
 
     if cuda:
-        torch.empty(1, device=dev)
+        for c in cards:
+            torch.empty(1, device=torch.device("cuda", c))
         sync()
         marks.append(("CUDA context", time.perf_counter()))
-    pool = make_pool(cfg, traffic, seed, dev)
+    pool = make_pool(cfg, traffic, seed, dev, mesh)
+    if cuda and mesh is not None:
+        torch.cuda.empty_cache()       # what the staging left on ``dev``
     sync()
     marks.append(("pool", time.perf_counter()))
     n_pool = len(pool)
     check = set(random.Random(seed).sample(
         range(n_pool), min(traffic["check_slots"], n_pool)))
     with torch.no_grad():
-        to_host(entry(*pool[0]))                 # the warm scene
+        warm = entry(*pool[0])                   # the warm scene
+        landing = Landing(warm, check, seed, pin=cuda)
+        land(warm, landing.scratch)
+        del warm
     sync()
     marks.append(("warm scene", time.perf_counter()))
     prev, split = t_start, []
@@ -193,7 +319,7 @@ def measure(cfg: dict, traffic: dict, seed: int, seconds: float,
         split.append(f"{stage} {t - prev:.2f}")
         prev = t
     log(f"set-up {prev - t_start:.2f} s: " + ", ".join(split))
-    kept, latencies = [], []
+    latencies = []
     out = {"correct": False, "attempted": 0, "failed": 0, "metrics": {}}
     with torch.no_grad():
         if not trace:
@@ -203,11 +329,9 @@ def measure(cfg: dict, traffic: dict, seed: int, seconds: float,
             while t_end < deadline or i < n_pool:     # the pool at least once
                 slot = i % n_pool
                 a = time.perf_counter()
-                host = to_host(entry(*pool[slot]))
+                landing(slot, entry(*pool[slot]))
                 t_end = time.perf_counter()
                 latencies.append(t_end - a)
-                if slot in check:
-                    kept.append((slot, host))
                 i += 1
             fifths = [statistics.fmean(latencies[j * len(latencies) // 5:
                                                  (j + 1) * len(latencies)
@@ -236,10 +360,9 @@ def measure(cfg: dict, traffic: dict, seed: int, seconds: float,
                     with record_function(profiling.WINDOW):
                         for i in range(n):
                             with record_function(profiling.SCENE):
-                                host = to_host(entry(*pool[i % n_pool]))
-                            if i % n_pool in check:
-                                kept.append((i % n_pool, host))
-            tr = profiling.Trace(prof, n, calls, modules)
+                                landing(i % n_pool, entry(*pool[i % n_pool]))
+            tr = profiling.Trace.from_profiler(prof, n, calls, modules,
+                                               cards)
             del prof
             for m in per_layer:
                 v = reader(m["name"], root)(tr)
@@ -249,9 +372,11 @@ def measure(cfg: dict, traffic: dict, seed: int, seconds: float,
             out["attempted"] = n
             out["trace"] = tr
     if cuda:
-        out["memory_peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+        out["memory_peak_bytes_per_card"] = [
+            torch.cuda.max_memory_allocated(c) for c in cards]
     # the check: the program's results are on the host; its pool entries
     # that no sample uses are freed before the reference runs
+    kept = landing.items()
     slots = sorted({s for s, _ in kept})
     refs = {}
     for s in range(n_pool):
@@ -260,7 +385,8 @@ def measure(cfg: dict, traffic: dict, seed: int, seconds: float,
     if cuda:
         torch.cuda.empty_cache()
     for s in slots:
-        refs[s] = reference.extract(*pool[s], traffic["algorithms"], cfg)
+        refs[s] = reference.extract(*(whole(x, dev) for x in pool[s]),
+                                    traffic["algorithms"], cfg)
     values = compare.worst(compare.numbers(host, refs[s])
                            for s, host in kept)
     out["correct"] = bool(kept) and compare.verdict(values)
@@ -312,14 +438,16 @@ def main(argv=None) -> int:
     torch.set_num_threads(1)
     # the program builds each kernel it launches at its first launch, in
     # the warm scene
-    entry = program_entry(cfg, traffic["algorithms"])
+    mesh = cell_mesh(cell)
+    entry = program_entry(cfg, traffic["algorithms"], mesh)
     marks.append(("program import", time.perf_counter()))
     out, values = measure(cfg, traffic, args.seed, args.seconds,
                           bool(args.trace), "cuda:0", entry, e2e, per_layer,
-                          t_start=T_START, marks=marks)
+                          t_start=T_START, marks=marks, mesh=mesh)
+    peaks = out["memory_peak_bytes_per_card"]
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
-              "count": cell["chips"],
-              "memory_peak_bytes": out["memory_peak_bytes"]}
+              "count": cell["chips"], "memory_peak_bytes": max(peaks),
+              "memory_peak_bytes_per_card": peaks}
     result = {"correct": out["correct"], "attempted": out["attempted"],
               "failed": out["failed"], "metrics": out["metrics"],
               "device": device}
@@ -327,6 +455,7 @@ def main(argv=None) -> int:
         tr = out["trace"]
         device["busy_s"] = tr.busy_s
         device["window_s"] = tr.window_s
+        device["per_card_busy_s"] = list(tr.card_busy_s().values())
         result["breakdown"] = tr.breakdown()
     device["power_limit_w"] = power_limit()
     bad = banned_modules()

@@ -31,9 +31,11 @@ def test_the_benchmark_file_keeps_to_its_contract():
     for w in BENCH["workloads"]:
         assert set(w) == {"name", "config", "traffic", "chips", "why"}
         assert NAME.match(w["name"]) and w["config"] in names
-        assert w["chips"] == 1 and len(w["why"]) <= 200
+        assert w["chips"] in (1, 4) and len(w["why"]) <= 200
         assert (ROOT / "portbench" / "traffic"
                 / f"{w['traffic']}.json").is_file()
+    four = [w["name"] for w in BENCH["workloads"] if w["chips"] == 4]
+    assert len(four) <= max(1, len(BENCH["workloads"]) // 4), four
     e2e = {m["name"] for m in BENCH["end_to_end"]}
     assert "setup_s" in e2e
     for m in BENCH["end_to_end"]:

@@ -13,17 +13,16 @@ NAMES = ("response_span", "select_span", "describe_span", "reduce_span",
          "engine_idle_ms")
 
 
-def make_trace(host, device, scenes=2, window=(0.0, 1000.0)):
-    """A `Trace` without a profiler: ``host`` and ``device`` are [(name,
-    start us, end us)]; device names starting with Memcpy or Memset are
-    copies."""
-    tr = object.__new__(profiling.Trace)
-    tr.window, tr.scenes, tr.calls, tr.modules = window, scenes, {}, {}
-    tr.host = list(host)
-    tr.kernels = [d for d in device if not d[0].startswith(("Memcpy",
-                                                            "Memset"))]
-    tr.copies = [d for d in device if d[0].startswith(("Memcpy", "Memset"))]
-    return tr
+def make_trace(host, device, scenes=2, window=(0.0, 1000.0), cards=None):
+    """A `Trace` without a profiler: ``host`` is [(name, start us, end us)
+    or (name, start, end, correlation id)], ``device`` [(name, start, end,
+    id) or (name, start, end, id, card)]; device names starting with
+    Memcpy or Memset are copies."""
+    host = [h if len(h) == 4 else (*h, 0) for h in host]
+    acts = [(n, s, t, d[4] if len(d) > 4 else 0, 0, i)
+            for d in device for n, s, t, i in [d[:4]]]
+    return profiling.Trace(window, [h[:3] for h in host], acts, scenes,
+                           cards=cards, host_ids=[h[3] for h in host])
 
 
 SPANS = [("difet.extract", 10.0, 800.0), ("difet.map", 20.0, 600.0),
@@ -31,23 +30,27 @@ SPANS = [("difet.extract", 10.0, 800.0), ("difet.map", 20.0, 600.0),
          ("difet.select.harris", 100.0, 300.0),
          ("difet.describe.orb", 300.0, 500.0),
          ("difet.reduce.harris", 610.0, 700.0)]
-# launching runtime calls, and host work that launches nothing
-LAUNCHES = [("cudaLaunchKernel", 40.0, 42.0),
-            ("cudaLaunchKernel", 50.0, 52.0),
-            ("cudaMemsetAsync", 150.0, 151.0),
-            ("cuLaunchKernel", 200.0, 203.0),
-            ("cudaMemcpyAsync", 550.0, 551.0),
-            ("cudaLaunchKernelExC", 620.0, 622.0),
-            ("cudaMemcpyAsync", 950.0, 952.0)]
-OTHERS = [("aten::add", 39.0, 45.0), ("cudaStreamSynchronize", 560.0, 580.0),
-          ("cudaEventRecord", 630.0, 631.0)]
-# in device order; each runs well after its launch, so that overlapping
-# host and device times would give other answers
-DEVICE = [("k_resp_a", 100.0, 140.0), ("k_resp_b", 140.0, 150.0),
-          ("Memset (Device)", 300.0, 301.0), ("k_select", 350.0, 450.0),
-          ("Memcpy DtoD (Device -> Device)", 560.0, 566.0),
-          ("k_reduce", 700.0, 720.0),
-          ("Memcpy DtoH (Device -> Pageable)", 955.0, 960.0)]
+# launching runtime calls with their correlation ids, and host work that
+# launches nothing
+LAUNCHES = [("cudaLaunchKernel", 40.0, 42.0, 101),
+            ("cudaLaunchKernel", 50.0, 52.0, 102),
+            ("cudaMemsetAsync", 150.0, 151.0, 103),
+            ("cuLaunchKernel", 200.0, 203.0, 104),
+            ("cudaMemcpyAsync", 550.0, 551.0, 105),
+            ("cudaLaunchKernelExC", 620.0, 622.0, 106),
+            ("cudaMemcpyAsync", 950.0, 952.0, 107)]
+OTHERS = [("aten::add", 39.0, 45.0, 7), ("cudaStreamSynchronize", 560.0,
+                                        580.0, 108),
+          ("cudaEventRecord", 630.0, 631.0, 109)]
+# in device order, with their launches' ids; each runs well after its
+# launch, so that overlapping host and device times would give other
+# answers
+DEVICE = [("k_resp_a", 100.0, 140.0, 101), ("k_resp_b", 140.0, 150.0, 102),
+          ("Memset (Device)", 300.0, 301.0, 103),
+          ("k_select", 350.0, 450.0, 104),
+          ("Memcpy DtoD (Device -> Device)", 560.0, 566.0, 105),
+          ("k_reduce", 700.0, 720.0, 106),
+          ("Memcpy DtoH (Device -> Pageable)", 955.0, 960.0, 107)]
 
 
 def full_trace(**kw):
@@ -75,11 +78,52 @@ def test_launches_pair_with_activities_in_order_and_innermost_span():
 
 
 def test_counts_that_differ_read_nothing():
-    for host, device in ((SPANS + LAUNCHES, DEVICE[:-1]),
-                         (SPANS + LAUNCHES[1:], DEVICE)):
+    """An activity whose launch is not in the window (by its correlation
+    id) reads nothing."""
+    for host, device in ((SPANS + LAUNCHES[1:], DEVICE),
+                         (SPANS + LAUNCHES, DEVICE + [("k_late", 970.0,
+                                                       980.0, 999)])):
         got = read_all(make_trace(host, device))
         assert got["engine_idle_ms"] is not None
         assert [got[n] for n in NAMES[:4]] == [None] * 4
+
+
+def test_a_launch_whose_activity_was_lost_pairs_with_nothing():
+    """The profiler lost an activity (a launch without its kernel): the
+    others still pair by id and read, where the n-th pairing read
+    nothing."""
+    got = read_all(make_trace(SPANS + LAUNCHES, DEVICE[:3] + DEVICE[4:]))
+    assert got["select_span"] == pytest.approx(1e-3 / 2)
+    assert got["response_span"] == pytest.approx(50e-3 / 2)
+    assert got["reduce_span"] == pytest.approx(20e-3 / 2)
+
+
+def test_two_cards_interleaved_pair_by_id():
+    """Two cards' activities interleave in another order than their
+    launches: pairing by id attributes each to its own launch's span,
+    where the n-th launch paired with the n-th activity would not."""
+    host = SPANS + [("cudaLaunchKernel", 40.0, 41.0, 1),     # card 0
+                    ("cudaLaunchKernel", 60.0, 61.0, 2),     # card 1
+                    ("cudaLaunchKernel", 120.0, 121.0, 3),   # card 0
+                    ("cudaLaunchKernel", 310.0, 311.0, 4)]   # card 1
+    device = [("k_resp0", 45.0, 300.0, 1, 0),
+              ("k_sel1", 150.0, 160.0, 3, 0),
+              ("k_desc1", 320.0, 330.0, 4, 1),
+              ("k_resp1", 400.0, 500.0, 2, 1)]
+    tr = make_trace(host, device, cards=[0, 1])
+    seconds = span.attribute(tr)
+    assert seconds == pytest.approx({
+        "difet.response.harris": (255 + 100) * 1e-6,
+        "difet.select.harris": 10e-6, "difet.describe.orb": 10e-6})
+    # by start order instead: k_resp0, k_sel1, k_desc1, k_resp1 against
+    # the launches at 40, 60, 120, 310
+    by_order = collections.Counter()
+    for (_, s, _, _), (_, a, b, _, _) in zip(host[len(SPANS):], device):
+        name = span.innermost(span.program_spans(tr), [s])[0]
+        by_order[name] += (b - a) * 1e-6
+    assert dict(by_order) == pytest.approx({
+        "difet.response.harris": 265e-6, "difet.select.harris": 10e-6,
+        "difet.describe.orb": 100e-6})
 
 
 def test_a_program_without_spans_or_a_trace_without_device_reads_nothing():
