@@ -5,28 +5,60 @@
 
 A cell names a configuration (``portbench/configs/<name>.json``) and a
 traffic mix (``portbench/traffic/<name>.json``).  Set-up draws the mix's
-pool of scenes on the card from the seed, cuts them into the
-configuration's halo tiles and runs one warm scene, in which the program
-loads its kernels (built once per checkout, under ``build/``).  The window then
-sends scenes back to back from one client (a closed loop, one scene in
-flight), cycling the pool, each pool scene at least once: a scene is one call of
-``repro_torch.core.engine.extract_features_multi`` over all its tiles, and
-ends when every requested algorithm's result is on the host, copied into
-page-locked tensors made in set-up (`Landing`).  A cell of n > 1
-cards runs ``engine.make_distributed_multi_extractor`` over
-``data_mesh(n)`` instead: each pool scene is drawn on the first card as
-before, then staged as ``Sharded`` batches, its rows split over the cards
-and resident there, and the results land on the first card.  With
-``--trace 1`` a few scenes run under ``torch.profiler`` instead, and the
-cell's per-layer metrics are read from that window.
+pool of scenes from the seed and runs one warm scene, in which the program
+loads its kernels (built once per checkout, under ``build/``).  The window
+then sends scenes back to back from one client (a closed loop, one scene in
+flight), cycling the pool, each pool scene at least once.  A scene ends
+when every requested algorithm's result is on the host, copied into
+page-locked tensors made in set-up (`Landing`).
+
+Where the scenes live is the configuration's ``input``:
+
+* ``resident`` (the default): each pool scene is drawn on the card and cut
+  into the configuration's halo tiles there, and stays resident.  A scene
+  is one call of the program's entry on its tiles and headers:
+  ``repro_torch.core.engine.extract_features_multi``, or, on a cell of
+  n > 1 cards, ``engine.make_distributed_multi_extractor`` over
+  ``data_mesh(n)``, each pool scene drawn on the first card and staged as
+  ``Sharded`` batches, its rows split over the cards and resident there,
+  the results landing on the first card.  ``scene_s`` is the window's
+  seconds over the scenes it ran, ``scene_p90_s`` the 90th percentile of a
+  scene's time from its call to its landing.
+* ``band_files``: set-up writes each pool scene to disk as LandSat-8's
+  visible bands (`scenes.write_bands`: ``scene.json`` and ``B4.npy``,
+  ``B3.npy``, ``B2.npy``, uint8) under
+  ``build/portbench/scenes/<cell>-<seed>/``, synced, and removed when the
+  run ends.  The window is one job over the pool's directories, cycled:
+  by default the program's streamed route as
+  ``repro_torch.launch.scale.run_worker`` composes it
+  (``BandSceneReader``, then ``iter_tile_batches`` with one scene's tiles a
+  batch packed into pinned memory, then a ``Prefetcher`` staging each batch
+  on the card or the mesh, then the extractor above), closed at the
+  deadline.  ``scene_s`` is the window's seconds over the scenes landed,
+  ``scene_p90_s`` the 90th percentile of the time from the previous
+  landing, or from the window's start, to a scene's landing.
+
+A configuration's optional ``entry``, ``"module:function"``, names the
+program's factory that set-up imports instead: ``factory(algorithms,
+DifetConfig, mesh)`` returns ``run(tiles, headers) -> {algorithm:
+result}`` for ``resident`` input, and ``run(scene_dirs) -> iterator of
+{algorithm: result}`` (each result on the first card) for ``band_files``.
+A factory that the program lacks ends the run before any scene, with one
+line that names it and a code other than 0.
+
+With ``--trace 1`` a few scenes (the traffic's ``trace_scenes``; of a
+job started under the profiler, those after its first) run under
+``torch.profiler`` instead, and the cell's per-layer metrics are read from
+that window.
 
 After the window the program's results for a sample of the scenes, drawn
 from the seed (up to ``CHECK_PER_SLOT`` runs of each of a few pool slots),
 are compared with the plain reference
-(``portbench/reference/difet.py``) run on the same tiles
-(``portbench/compare.py``).  The last line of standard output is the JSON
-result; the numbers compared, each beside its limit, are the last lines of
-standard error.
+(``portbench/reference/difet.py``) run on the same tiles: for band files
+cut by the plain tiler ``portbench/reference/bands.py`` from the same
+files (``portbench/compare.py``).  The last line of standard output is the
+JSON result; the numbers compared, each beside its limit, are the last
+lines of standard error.
 """
 import time
 
@@ -38,6 +70,7 @@ import importlib.util  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
 import random  # noqa: E402
+import shutil  # noqa: E402
 import statistics  # noqa: E402
 import subprocess  # noqa: E402
 import sys  # noqa: E402
@@ -81,7 +114,18 @@ def cell_spec(bench: dict, name: str, root: Path = ROOT):
     if traffic.get("kind") != "closed_loop" or traffic.get("clients") != 1:
         raise SystemExit(f"portbench: traffic {cell['traffic']!r}: only a "
                          f"closed loop of one client is generated")
+    if input_kind(cfg) not in INPUTS:
+        raise SystemExit(f"portbench: configuration {cell['config']!r}: "
+                         f"input {cfg['input']!r} is none of "
+                         f"{', '.join(INPUTS)}")
     return cell, cfg, traffic
+
+
+INPUTS = ("resident", "band_files")     # where a configuration's scenes live
+
+
+def input_kind(cfg: dict) -> str:
+    return cfg.get("input", "resident")
 
 
 def cell_metrics(bench: dict, name: str):
@@ -137,13 +181,40 @@ def cell_mesh(cell: dict):
     return data_mesh(cell["chips"])
 
 
+def entry_factory(spec: str):
+    """The program's factory named ``"module:function"``, imported; a
+    factory that the program lacks ends the run with one line naming it."""
+    module, sep, name = spec.partition(":")
+    try:
+        if not (module and sep and name):
+            raise ValueError("not of the form module:function")
+        factory = getattr(importlib.import_module(module), name)
+    except (ImportError, AttributeError, ValueError) as e:
+        raise SystemExit(f"portbench: the program has no entry {spec!r} "
+                         f"({type(e).__name__}: {e})") from None
+    if not callable(factory):
+        raise SystemExit(f"portbench: the program's entry {spec!r} is not "
+                         f"callable")
+    return factory
+
+
 def program_entry(cfg: dict, algorithms, mesh=None):
-    """The timed entry of the system under test: one scene's tiles and
-    headers (on the device; over ``mesh``, `Sharded` batches on it) ->
-    {algorithm: result}."""
+    """The timed entry of the system under test: the configuration's
+    ``entry`` factory where it names one; else, for ``resident`` input,
+    one scene's tiles and headers (on the device; over ``mesh``, `Sharded`
+    batches on it) -> {algorithm: result}, and for ``band_files``,
+    `band_entry`."""
+    if "entry" in cfg:
+        return entry_factory(cfg["entry"])(tuple(algorithms),
+                                           difet_config(cfg), mesh)
+    if input_kind(cfg) == "band_files":
+        return band_entry(tuple(algorithms), difet_config(cfg), mesh)
+    return extractor(tuple(algorithms), difet_config(cfg), mesh)
+
+
+def extractor(algs, dc, mesh=None):
+    """The program's extractor of one batch of tiles and headers."""
     from repro_torch.core import engine
-    dc = difet_config(cfg)
-    algs = tuple(algorithms)
     if mesh is not None:
         return engine.make_distributed_multi_extractor(algs, dc, mesh)
 
@@ -151,6 +222,42 @@ def program_entry(cfg: dict, algorithms, mesh=None):
         return engine.extract_features_multi(tiles, headers, algs, dc,
                                              device=tiles.device)
     return entry
+
+
+def band_entry(algs, dc, mesh=None):
+    """``run(scene_dirs)`` -> an iterator of each scene's {algorithm:
+    result}: the program's streamed route as ``launch/scale.py::run_worker``
+    composes it.  ``BandSceneReader`` (one a directory), then
+    ``iter_tile_batches`` with one scene's tiles a batch (all the scenes of
+    a configuration have its shape), packed into pinned memory on a card,
+    then a ``Prefetcher`` staging each batch on the first card (the CPU
+    where there is none) or over ``mesh``, then `extractor`.  Closing the
+    iterator closes the prefetcher."""
+    import numpy as np
+    import torch
+    from repro_torch.data.landsat import BandSceneReader
+    from repro_torch.data.pipeline import (Prefetcher, iter_tile_batches,
+                                           pinned_empty, scene_tile_count)
+    fn = extractor(algs, dc, mesh)
+    if mesh is not None:
+        device, staging = torch.device(mesh[0]), {"mesh": mesh}
+    else:
+        device = torch.device("cuda:0" if torch.cuda.is_available()
+                              else "cpu")
+        staging = {"device": device}
+    alloc = pinned_empty if device.type == "cuda" else np.empty
+
+    def run(scene_dirs):
+        opened = {}
+        for d in dict.fromkeys(map(str, scene_dirs)):
+            opened[d] = BandSceneReader(d)
+        readers = [opened[str(d)] for d in scene_dirs]
+        batches = iter_tile_batches(
+            readers, dc, scene_tile_count(readers[0].shape, dc), alloc=alloc)
+        with Prefetcher(batches, device_put=True, **staging) as pf:
+            for _, bundle in pf:
+                yield fn(bundle.tiles, bundle.headers)
+    return run
 
 
 def to_host(result: dict) -> dict:
@@ -270,9 +377,47 @@ def whole(x, device):
     return torch.cat([p.to(device) for p in parts])
 
 
+def write_pool(cfg: dict, traffic: dict, seed: int, device, where: Path):
+    """The traffic's pool of scenes written to disk as band files: each
+    scene drawn on ``device`` as `make_pool` draws it, its visible bands
+    (`scenes.band_scene`) stored under ``where/scene_<i>`` and synced.
+    Returns the scene directories."""
+    import torch
+    from portbench import scenes
+    gen = scenes.generator(seed, device)
+    h, w = cfg["scene_hw"]
+    if where.exists():
+        shutil.rmtree(where)
+    dirs = []
+    with torch.no_grad():
+        for i in range(traffic["pool_scenes"]):
+            bands = scenes.band_scene(scenes.synthetic_scene(h, w, gen))
+            dirs.append(scenes.write_bands(where, f"scene_{i}",
+                                           bands.cpu().numpy()))
+            del bands
+    return dirs
+
+
+def job(pool: list, n: int) -> list:
+    """``n`` scenes of the pool, cycled: scene ``i`` is slot ``i % len``."""
+    return [pool[i % len(pool)] for i in range(n)]
+
+
+WARM_SCENES = 4          # a job's warm scenes: the prefetcher's depth + 2
+JOB_SCENES_PER_S = 1000  # a window's job is longer than it can run
+
+
+def close_job(it):
+    """Close a job's iterator where it can be closed (a generator)."""
+    close = getattr(it, "close", None)
+    if close is not None:
+        close()
+
+
 def measure(cfg: dict, traffic: dict, seed: int, seconds: float,
             trace: bool, device, entry, e2e=(), per_layer=(),
-            t_start=None, marks=(), root: Path = ROOT, mesh=None):
+            t_start=None, marks=(), root: Path = ROOT, mesh=None,
+            name: str = "cell", scenes_dir=None):
     """Set-up, the window (or the traced scenes), and the check: returns
     (result, compared values) where result has the keys ``correct``,
     ``attempted``, ``failed``, ``metrics``, on CUDA
@@ -280,10 +425,10 @@ def measure(cfg: dict, traffic: dict, seed: int, seconds: float,
     the (stage, clock) of set-up before the call; the set-up's split by
     stage is logged.  Over ``mesh`` (the mesh ``entry`` runs on) the pool
     is drawn on ``device`` and staged on the mesh; the reference runs on
-    ``device``."""
+    ``device``.  For ``band_files`` input the pool is written under
+    ``scenes_dir`` (by default ``build/portbench/scenes/<name>-<seed>``
+    under ``root``), removed before the call returns."""
     import torch
-    from portbench import compare, profiling
-    from portbench.reference import difet as reference
     t_start = time.perf_counter() if t_start is None else t_start
     marks = list(marks)
     dev = torch.device(device)
@@ -299,19 +444,55 @@ def measure(cfg: dict, traffic: dict, seed: int, seconds: float,
             torch.empty(1, device=torch.device("cuda", c))
         sync()
         marks.append(("CUDA context", time.perf_counter()))
-    pool = make_pool(cfg, traffic, seed, dev, mesh)
-    if cuda and mesh is not None:
-        torch.cuda.empty_cache()       # what the staging left on ``dev``
-    sync()
-    marks.append(("pool", time.perf_counter()))
-    n_pool = len(pool)
+    if input_kind(cfg) == "resident":
+        pool = make_pool(cfg, traffic, seed, dev, mesh)
+        if cuda and mesh is not None:
+            torch.cuda.empty_cache()       # what the staging left on ``dev``
+        sync()
+        marks.append(("pool", time.perf_counter()))
+        return _measure(cfg, traffic, seed, seconds, trace, dev, entry, e2e,
+                        per_layer, t_start, marks, root, cards, sync, pool,
+                        None)
+    where = Path(scenes_dir or root / "build" / "portbench" / "scenes"
+                 / f"{name}-{seed}")
+    try:
+        pool = write_pool(cfg, traffic, seed, dev, where)
+        if cuda:
+            torch.cuda.empty_cache()       # what the drawing left on ``dev``
+        sync()
+        marks.append(("band files", time.perf_counter()))
+        return _measure(cfg, traffic, seed, seconds, trace, dev, entry, e2e,
+                        per_layer, t_start, marks, root, cards, sync, None,
+                        pool)
+    finally:
+        shutil.rmtree(where, ignore_errors=True)
+
+
+def _measure(cfg, traffic, seed, seconds, trace, dev, entry, e2e, per_layer,
+             t_start, marks, root, cards, sync, pool, dirs):
+    """`measure` from the warm scene on: over the resident ``pool`` of
+    (tiles, headers), or over the band files' directories ``dirs``."""
+    import torch
+    from portbench import compare, profiling
+    from portbench.reference import bands
+    from portbench.reference import difet as reference
+    cuda = dev.type == "cuda"
+    n_pool = len(pool if dirs is None else dirs)
     check = set(random.Random(seed).sample(
         range(n_pool), min(traffic["check_slots"], n_pool)))
     with torch.no_grad():
-        warm = entry(*pool[0])                   # the warm scene
-        landing = Landing(warm, check, seed, pin=cuda)
-        land(warm, landing.scratch)
-        del warm
+        if dirs is None:
+            warm = entry(*pool[0])                   # the warm scene
+            landing = Landing(warm, check, seed, pin=cuda)
+            land(warm, landing.scratch)
+            del warm
+        else:
+            landing = None                           # the warm scenes
+            for warm in entry(job(dirs, WARM_SCENES)):
+                if landing is None:
+                    landing = Landing(warm, check, seed, pin=cuda)
+                land(warm, landing.scratch)
+            del warm
     sync()
     marks.append(("warm scene", time.perf_counter()))
     prev, split = t_start, []
@@ -326,13 +507,32 @@ def measure(cfg: dict, traffic: dict, seed: int, seconds: float,
             t0 = time.perf_counter()
             setup_s = t0 - t_start
             deadline, t_end, i = t0 + seconds, t0, 0
-            while t_end < deadline or i < n_pool:     # the pool at least once
-                slot = i % n_pool
-                a = time.perf_counter()
-                landing(slot, entry(*pool[slot]))
-                t_end = time.perf_counter()
-                latencies.append(t_end - a)
-                i += 1
+            if dirs is None:
+                while t_end < deadline or i < n_pool:  # the pool at least once
+                    slot = i % n_pool
+                    a = time.perf_counter()
+                    landing(slot, entry(*pool[slot]))
+                    t_end = time.perf_counter()
+                    latencies.append(t_end - a)
+                    i += 1
+            else:
+                # one job, its scenes timed landing to landing
+                scenes = iter(entry(job(
+                    dirs, n_pool + int(JOB_SCENES_PER_S * max(seconds, 1)))))
+                try:
+                    while t_end < deadline or i < n_pool:
+                        result = next(scenes, None)
+                        if result is None:
+                            log("the job ran out of scenes before the "
+                                "deadline")
+                            break
+                        landing(i % n_pool, result)
+                        t = time.perf_counter()
+                        latencies.append(t - t_end)
+                        t_end = t
+                        i += 1
+                finally:
+                    close_job(scenes)
             fifths = [statistics.fmean(latencies[j * len(latencies) // 5:
                                                  (j + 1) * len(latencies)
                                                  // 5] or [0.0])
@@ -355,12 +555,30 @@ def measure(cfg: dict, traffic: dict, seed: int, seconds: float,
             modules = profiling.work_modules(root)
             acts = [ProfilerActivity.CPU] + (
                 [ProfilerActivity.CUDA] if cuda else [])
-            with profiling.recording_calls(modules) as calls:
+            if dirs is None:
+                with profiling.recording_calls(modules) as calls:
+                    with profile(activities=acts) as prof:
+                        with record_function(profiling.WINDOW):
+                            for i in range(n):
+                                with record_function(profiling.SCENE):
+                                    landing(i % n_pool,
+                                            entry(*pool[i % n_pool]))
+            else:
+                # the job starts under the profiler, and its first scene,
+                # which fills the pipeline, lands before the window: the
+                # next ``n`` are traced at the pace they keep (a job started
+                # before the profiler would find them tiled ahead)
                 with profile(activities=acts) as prof:
-                    with record_function(profiling.WINDOW):
-                        for i in range(n):
-                            with record_function(profiling.SCENE):
-                                landing(i % n_pool, entry(*pool[i % n_pool]))
+                    scenes = iter(entry(job(dirs, n + 1)))
+                    try:
+                        landing(0, next(scenes))
+                        with profiling.recording_calls(modules) as calls:
+                            with record_function(profiling.WINDOW):
+                                for i in range(1, n + 1):
+                                    with record_function(profiling.SCENE):
+                                        landing(i % n_pool, next(scenes))
+                    finally:
+                        close_job(scenes)
             tr = profiling.Trace.from_profiler(prof, n, calls, modules,
                                                cards)
             del prof
@@ -379,14 +597,24 @@ def measure(cfg: dict, traffic: dict, seed: int, seconds: float,
     kept = landing.items()
     slots = sorted({s for s, _ in kept})
     refs = {}
-    for s in range(n_pool):
-        if s not in slots:
-            pool[s] = None
+    if dirs is None:
+        for s in range(n_pool):
+            if s not in slots:
+                pool[s] = None
     if cuda:
         torch.cuda.empty_cache()
     for s in slots:
-        refs[s] = reference.extract(*(whole(x, dev) for x in pool[s]),
-                                    traffic["algorithms"], cfg)
+        if dirs is None:
+            tiles, headers = (whole(x, dev) for x in pool[s])
+        else:
+            # the plain tiler on the same files; the scene id is the
+            # slot's first place in the job (the reference reads no id)
+            tiles, headers = (torch.from_numpy(x).to(dev) for x in
+                              bands.tile_scene(dirs[s], cfg["tile"],
+                                               cfg["halo"], s))
+        refs[s] = reference.extract(tiles, headers, traffic["algorithms"],
+                                    cfg)
+        del tiles, headers
     values = compare.worst(compare.numbers(host, refs[s])
                            for s, host in kept)
     out["correct"] = bool(kept) and compare.verdict(values)
@@ -426,6 +654,8 @@ def main(argv=None) -> int:
     bench = load_json(ROOT / "BENCHMARK.json")
     cell, cfg, traffic = cell_spec(bench, args.workload)
     e2e, per_layer = cell_metrics(bench, args.workload)
+    if "entry" in cfg:
+        entry_factory(cfg["entry"])        # one the program lacks ends here
     import torch
     marks = [("torch import", time.perf_counter())]
     if not torch.cuda.is_available():
@@ -443,7 +673,8 @@ def main(argv=None) -> int:
     marks.append(("program import", time.perf_counter()))
     out, values = measure(cfg, traffic, args.seed, args.seconds,
                           bool(args.trace), "cuda:0", entry, e2e, per_layer,
-                          t_start=T_START, marks=marks, mesh=mesh)
+                          t_start=T_START, marks=marks, mesh=mesh,
+                          name=args.workload)
     peaks = out["memory_peak_bytes_per_card"]
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": cell["chips"], "memory_peak_bytes": max(peaks),

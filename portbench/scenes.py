@@ -9,9 +9,20 @@ sensor noise of 0.01, clipped to [0, 1].  Everything is drawn with one
 ``torch.Generator`` on the scene's device in a few large calls: fields and
 targets are added exactly through an integer difference image and two
 cumulative sums.
+
+A configuration whose ``input`` is ``band_files`` keeps its scenes on disk
+as LandSat-8 ships them, one file a band: `band_scene` turns a drawn gray
+scene into the B4, B3 and B2 bands (uint8), and `write_bands` stores them
+in the program's layout, a ``scene.json`` beside one ``.npy`` a band, each
+file synced to the disk.
 """
 from __future__ import annotations
 
+import json
+import os
+from pathlib import Path
+
+import numpy as np
 import torch
 
 
@@ -111,3 +122,44 @@ def tile_scene(gray: torch.Tensor, tile: int, halo: int, scene_id: int = 0):
         (h - ty * tile).clamp(max=tile), (w - tx * tile).clamp(max=tile),
         torch.zeros_like(ty)], dim=1).to(torch.int32)
     return tiles, headers
+
+
+BANDS = ("B4", "B3", "B2")      # red, green, blue: the visible bands
+
+
+def band_scene(gray: torch.Tensor) -> torch.Tensor:
+    """The visible bands uint8 [3, h, w] (B4, B3, B2) of a gray scene in
+    [0, 1]: the gray level, 0.9 and 0.8 of it, scaled to 255 and cut to
+    whole levels, on the scene's device."""
+    return (torch.stack([gray, gray * 0.9, gray * 0.8]) * 255).to(
+        torch.uint8)
+
+
+def _synced(f) -> None:
+    f.flush()
+    os.fsync(f.fileno())
+
+
+def write_bands(root, name: str, bands: np.ndarray) -> Path:
+    """Store a scene's bands uint8 [3, h, w] (`BANDS` order) under
+    ``root/name``: ``B4.npy``, ``B3.npy``, ``B2.npy`` and ``scene.json``
+    (name, h, w and the band names sorted), each file and the directory
+    synced, so that no writeback of them is left for later.  Returns the
+    scene's directory."""
+    d = Path(root) / name
+    d.mkdir(parents=True, exist_ok=True)
+    for b, arr in zip(BANDS, bands):
+        with open(d / f"{b}.npy", "wb") as f:
+            np.save(f, np.ascontiguousarray(arr), allow_pickle=False)
+            _synced(f)
+    _, h, w = bands.shape
+    with open(d / "scene.json", "w") as f:
+        f.write(json.dumps({"name": name, "h": int(h), "w": int(w),
+                            "bands": sorted(BANDS)}, indent=1))
+        _synced(f)
+    fd = os.open(d, os.O_RDONLY)
+    try:
+        os.fsync(fd)
+    finally:
+        os.close(fd)
+    return d

@@ -1,8 +1,8 @@
 """``BENCHMARK.json`` keeps to the benchmark's contract, and a new
-configuration, traffic mix, per-layer metric or kernel's work count is a
-new file under
-``portbench/`` that the harness finds by its name, with no edit to any
-file that is there."""
+configuration (its scenes resident or in band files, the program's entry
+named or not), traffic mix, per-layer metric or kernel's work count is a
+new file under ``portbench/`` that the harness finds by its name, with no
+edit to any file that is there."""
 import json
 import re
 import shutil
@@ -105,6 +105,58 @@ def test_a_new_cell_and_metric_are_new_files_only(tmp_path, tiny_cfg):
     assert out["trace"].modules["matcher"].WRAPPER == "match_best2"
     assert out["trace"].calls["matcher"] == []
     assert "matcher_roofline" not in out["metrics"]
+    for p, data in before.items():
+        assert p.read_bytes() == data, p
+
+
+STUB_FACTORY = '''
+from portbench import run
+
+
+def factory(algorithms, cfg, mesh):
+    return run.band_entry(algorithms, cfg, mesh)
+'''
+
+
+@pytest.mark.parametrize("extra", [{"input": "band_files"},
+                                   {"input": "band_files",
+                                    "entry": "stub_factory:factory"}])
+def test_a_band_or_entry_configuration_is_new_files_only(
+        tmp_path, tiny_cfg, monkeypatch, extra):
+    """A configuration that keeps its scenes as band files, or names the
+    program's entry (here a stub factory beside the checkout), and a
+    traffic mix are new files: the harness finds them, runs the cell and
+    checks it; every file that was there is unchanged."""
+    shutil.copytree(ROOT / "portbench", tmp_path / "portbench",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    before = {p: p.read_bytes() for p in (tmp_path / "portbench").rglob("*")
+              if p.is_file()}
+    (tmp_path / "stubs").mkdir()
+    (tmp_path / "stubs/stub_factory.py").write_text(STUB_FACTORY)
+    monkeypatch.syspath_prepend(str(tmp_path / "stubs"))
+    (tmp_path / "portbench/configs/difet-bands.json").write_text(
+        json.dumps(dict(tiny_cfg, scene_hw=[131, 77], **extra)))
+    (tmp_path / "portbench/traffic/corners.json").write_text(json.dumps(
+        {"kind": "closed_loop", "clients": 1, "pool_scenes": 2,
+         "check_slots": 1, "trace_scenes": 1,
+         "algorithms": ["harris", "shi_tomasi", "fast"]}))
+    bench = json.loads(json.dumps(BENCH))
+    bench["configs"].append({"name": "difet-bands", "source": "x",
+                             "file": "portbench/configs/difet-bands.json",
+                             "reduced": [], "why": "x"})
+    bench["workloads"].append({"name": "bands.corners",
+                               "config": "difet-bands",
+                               "traffic": "corners", "chips": 1, "why": "x"})
+    cell, cfg, traffic = run.cell_spec(bench, "bands.corners", tmp_path)
+    assert run.input_kind(cfg) == "band_files"
+    e2e, _ = run.cell_metrics(bench, "bands.corners")
+    entry = run.program_entry(cfg, traffic["algorithms"])
+    out, _ = run.measure(cfg, traffic, 2 ** 35 + 1, 0.01, False, "cpu",
+                         entry, e2e, root=tmp_path, name="bands.corners")
+    assert out["correct"] and out["compared_scenes"] >= 1
+    assert {m for m in out["metrics"]} == {"scene_s", "scene_p90_s",
+                                           "setup_s"}
+    assert not any((tmp_path / "build/portbench/scenes").iterdir())
     for p, data in before.items():
         assert p.read_bytes() == data, p
 
